@@ -1,0 +1,23 @@
+from ccnet_tpu_torch.data.cityscapes import (
+    CITYSCAPES_CLASS_NAMES,
+    CITYSCAPES_ID_TO_TRAINID,
+    CityscapesDataset,
+    trainid_lut,
+    trainid_to_labelid,
+)
+from ccnet_tpu_torch.data.loader import DataLoader, SyntheticDataset
+from ccnet_tpu_torch.data.palette import cityscapes_palette, save_indexed_png
+from ccnet_tpu_torch.data.preprocess import CITYSCAPES_MEAN_BGR
+
+__all__ = [
+    "CITYSCAPES_CLASS_NAMES",
+    "CITYSCAPES_ID_TO_TRAINID",
+    "CITYSCAPES_MEAN_BGR",
+    "CityscapesDataset",
+    "DataLoader",
+    "SyntheticDataset",
+    "cityscapes_palette",
+    "save_indexed_png",
+    "trainid_lut",
+    "trainid_to_labelid",
+]

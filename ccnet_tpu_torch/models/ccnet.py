@@ -1,0 +1,166 @@
+"""CCNet: dilated ResNet + recurrent criss-cross attention (RCCA) head, NCHW.
+
+Counterpart of :mod:`ccnet_tpu.models.ccnet`:
+
+* :class:`CrissCrossAttention` — 1×1 q/k convs to C/8, 1×1 v conv to C, the
+  joint row+column softmax attention, a zero-initialised scalar ``gamma``
+  gate and the residual add. At init the module is an identity, so a wrong
+  attention kernel changes no logit until ``gamma`` is non-zero.
+* :class:`RCCAModule` — 3×3 conv 2048→512 + ABN(leaky 0.01), CCA applied
+  ``recurrence`` times with shared weights, 3×3 conv + ABN, a bottleneck
+  over ``concat([trunk, attended])`` (2560→512) + ABN + dropout + the 1×1
+  classifier.
+* :class:`DSNHead` — the auxiliary head off layer3.
+
+The model returns f32 ``{'main', 'aux'}`` logits at OS 8; the loss lives
+outside it. State-dict names are the reference's (``head.cca.gamma``,
+``head.bottleneck.0.weight``, ``dsn.3.bias``, ...).
+
+CCA routing: ``impl="torch"`` runs the plain version, ``impl="kernel"`` the
+CUDA kernels (and raises on a CPU tensor), ``impl="auto"`` takes the kernels
+on a CUDA tensor and the plain version on a CPU tensor. The JAX package's
+TPU crossover (``_CCA_PALLAS_MIN_AXIS_SUM``) is a v5e measurement and is not
+carried over.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ccnet_tpu_torch.models.backbone import DilatedResNet
+from ccnet_tpu_torch.nn.layers import ABN, Conv
+from ccnet_tpu_torch.ops.cc_attention import criss_cross_attention
+from ccnet_tpu_torch.ops.cc_attention_cuda import criss_cross_attention_cuda
+
+CCA_IMPLS = ("torch", "kernel", "auto")
+
+
+def _nhwc(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, 2, 3, 1).contiguous()
+
+
+class CrissCrossAttention(nn.Module):
+    """Criss-cross attention with q/k/v projections and gamma-gated residual."""
+
+    def __init__(self, features: int, impl: str = "auto", dtype=torch.float32):
+        super().__init__()
+        if impl not in CCA_IMPLS:
+            raise ValueError(f"impl must be one of {CCA_IMPLS}, got {impl!r}")
+        self.impl = impl
+        self.query_conv = Conv(features, features // 8, 1, dtype=dtype)
+        self.key_conv = Conv(features, features // 8, 1, dtype=dtype)
+        self.value_conv = Conv(features, features, 1, dtype=dtype)
+        self.gamma = nn.Parameter(torch.zeros(1))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        q = _nhwc(self.query_conv(x))
+        k = _nhwc(self.key_conv(x))
+        v = _nhwc(self.value_conv(x))
+        impl = self.impl
+        if impl == "auto":
+            impl = "kernel" if x.device.type == "cuda" else "torch"
+        if impl == "kernel":
+            if x.device.type != "cuda":
+                raise ValueError(f"impl='kernel' needs a CUDA tensor, got one on {x.device}")
+            out = criss_cross_attention_cuda(q, k, v)[0]
+        else:
+            out = criss_cross_attention(q, k, v)
+        return self.gamma.to(x.dtype) * out.permute(0, 3, 1, 2) + x
+
+
+class _ConcatConv(nn.Module):
+    """3×3 conv over the channel concat of two inputs, without the concat.
+
+    ``conv(cat([a, b]), W) == conv(a, W[:, :Ca]) + conv(b, W[:, Ca:])``. The
+    parameter keeps the reference's single fused shape and name
+    (``head.bottleneck.0.weight``), so checkpoints convert unchanged.
+    """
+
+    def __init__(self, in_a: int, in_b: int, features: int, dtype=torch.float32):
+        super().__init__()
+        self.in_a = in_a
+        self.compute_dtype = dtype
+        self.weight = nn.Parameter(torch.empty(features, in_a + in_b, 3, 3))
+        nn.init.kaiming_uniform_(self.weight, a=math.sqrt(5))  # nn.Conv2d's default
+
+    def forward(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        w = self.weight.to(dt)
+        ca = self.in_a
+        return (F.conv2d(a.to(dt), w[:, :ca], padding=1)
+                + F.conv2d(b.to(dt), w[:, ca:], padding=1))
+
+
+class RCCAModule(nn.Module):
+    """Recurrent criss-cross head: conva → CCA×R (shared) → convb → bottleneck."""
+
+    def __init__(self, num_classes: int, in_channels: int = 2048, out_channels: int = 512,
+                 recurrence: int = 2, impl: str = "auto", drop_rate: float = 0.1,
+                 dtype=torch.float32):
+        super().__init__()
+        inter = in_channels // 4
+        self.recurrence = recurrence
+        self.conva = nn.Sequential(Conv(in_channels, inter, 3, padding=1, bias=False, dtype=dtype),
+                                   ABN(inter))
+        self.cca = CrissCrossAttention(inter, impl=impl, dtype=dtype)
+        self.convb = nn.Sequential(Conv(inter, inter, 3, padding=1, bias=False, dtype=dtype),
+                                   ABN(inter))
+        self.bottleneck = nn.Sequential(
+            _ConcatConv(in_channels, inter, out_channels, dtype=dtype),
+            ABN(out_channels),
+            nn.Dropout(drop_rate),
+            Conv(out_channels, num_classes, 1, bias=True, dtype=dtype),
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = self.conva(x)
+        for _ in range(self.recurrence):
+            out = self.cca(out)  # shared weights across recurrence steps
+        out = self.convb(out)
+        cat_conv, bn, drop, classifier = self.bottleneck
+        return classifier(drop(bn(cat_conv(x, out))))
+
+
+class DSNHead(nn.Sequential):
+    """Deeply-supervised auxiliary head off layer3 (``dsn.0`` … ``dsn.3``)."""
+
+    def __init__(self, num_classes: int, in_channels: int = 1024, drop_rate: float = 0.1,
+                 dtype=torch.float32):
+        super().__init__(
+            Conv(in_channels, 512, 3, padding=1, bias=True, dtype=dtype),
+            ABN(512),
+            nn.Dropout(drop_rate),
+            Conv(512, num_classes, 1, bias=True, dtype=dtype),
+        )
+
+
+class CCNet(DilatedResNet):
+    """Full CCNet segmentation model. Returns {'main', 'aux'} f32 logits at OS 8.
+
+    The backbone's modules sit at the top level (``conv1``, ``layer3.0``), as
+    in the reference's state dict; ``head`` and ``dsn`` sit beside them.
+    """
+
+    def __init__(self, num_classes: int = 19, layers: Sequence[int] = (3, 4, 23, 3),
+                 recurrence: int = 2, impl: str = "auto", drop_rate: float = 0.1,
+                 dtype=torch.float32):
+        super().__init__(layers, dtype=dtype)
+        self.head = RCCAModule(num_classes, recurrence=recurrence, impl=impl,
+                               drop_rate=drop_rate, dtype=dtype)
+        self.dsn = DSNHead(num_classes, drop_rate=drop_rate, dtype=dtype)
+
+    def set_cca_impl(self, impl: str) -> None:
+        if impl not in CCA_IMPLS:
+            raise ValueError(f"impl must be one of {CCA_IMPLS}, got {impl!r}")
+        self.head.cca.impl = impl
+
+    def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+        x3, x4 = super().forward(x)
+        aux = self.dsn(x3)
+        main = self.head(x4)
+        return {"main": main.float(), "aux": aux.float()}
