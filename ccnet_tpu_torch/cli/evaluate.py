@@ -109,7 +109,7 @@ def main(argv=None):
     else:
         dataset = CityscapesDataset(args.data_dir, args.data_list, split=args.split,
                                     raw_dtype="uint8")
-    loader = DataLoader(dataset, args.batch_size)
+    loader = DataLoader(dataset, args.batch_size, shuffle=False, drop_last=False)
 
     evaluator = Evaluator(
         apply_fn, num_classes=args.num_classes, tile_hw=(h, w),

@@ -5,9 +5,13 @@ from ccnet_tpu_torch.data.cityscapes import (
     trainid_lut,
     trainid_to_labelid,
 )
-from ccnet_tpu_torch.data.loader import DataLoader, SyntheticDataset
+from ccnet_tpu_torch.data.loader import DataLoader, SyntheticDataset, U8CropDataset
 from ccnet_tpu_torch.data.palette import cityscapes_palette, save_indexed_png
-from ccnet_tpu_torch.data.preprocess import CITYSCAPES_MEAN_BGR
+from ccnet_tpu_torch.data.preprocess import (
+    CITYSCAPES_MEAN_BGR,
+    device_augment_batch,
+    finish_u8_crops,
+)
 
 __all__ = [
     "CITYSCAPES_CLASS_NAMES",
@@ -16,7 +20,10 @@ __all__ = [
     "CityscapesDataset",
     "DataLoader",
     "SyntheticDataset",
+    "U8CropDataset",
     "cityscapes_palette",
+    "device_augment_batch",
+    "finish_u8_crops",
     "save_indexed_png",
     "trainid_lut",
     "trainid_to_labelid",

@@ -18,9 +18,13 @@ outside it. State-dict names are the reference's (``head.cca.gamma``,
 
 CCA routing: ``impl="torch"`` runs the plain version, ``impl="kernel"`` the
 CUDA kernels (and raises on a CPU tensor), ``impl="auto"`` takes the kernels
-on a CUDA tensor and the plain version on a CPU tensor. The JAX package's
-TPU crossover (``_CCA_PALLAS_MIN_AXIS_SUM``) is a v5e measurement and is not
-carried over.
+on a CUDA tensor and the plain version on a CPU tensor. The kernel route is
+:class:`~ccnet_tpu_torch.ops.cc_attention_cuda.CrissCrossAttentionFn`: K1/K2
+forward and, in training, K3/K4 backward; under ``torch.inference_mode()``
+nothing is kept for a backward. The JAX package's TPU crossover
+(``_CCA_PALLAS_MIN_AXIS_SUM``) is a v5e measurement and is not carried over.
+Head and DSN dropout (``drop_rate``, elementwise, as flax ``nn.Dropout``)
+acts in train mode only.
 """
 
 from __future__ import annotations

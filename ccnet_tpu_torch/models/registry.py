@@ -15,7 +15,7 @@ _DEPTH_LAYERS = {50: (3, 4, 6, 3), 101: (3, 4, 23, 3), 152: (3, 8, 36, 3)}
 
 def build_model(name: str, num_classes: int = 19, recurrence: int = 2, depth: int = 101,
                 dtype=torch.float32, impl: str = "auto", seed: int = 0,
-                device: torch.device | str = "cpu"):
+                device: torch.device | str = "cpu", drop_rate: float = 0.1):
     """Build a segmentation model by name, its initial weights drawn from
     ``seed`` (without touching the global torch generator), in eval mode on
     ``device``."""
@@ -28,5 +28,5 @@ def build_model(name: str, num_classes: int = 19, recurrence: int = 2, depth: in
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
         model = CCNet(num_classes=num_classes, layers=_DEPTH_LAYERS[depth],
-                      recurrence=recurrence, impl=impl, dtype=dtype)
+                      recurrence=recurrence, impl=impl, drop_rate=drop_rate, dtype=dtype)
     return model.eval().to(device)

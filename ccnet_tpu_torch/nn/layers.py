@@ -8,16 +8,20 @@ Counterpart of :mod:`ccnet_tpu.nn.layers`, NCHW.
 * :class:`ABN` is batch norm followed by identity (backbone) or leaky-ReLU
   0.01 (heads, InPlace-ABN's default). In eval mode scale and shift are
   computed in f32 from the running stats, then cast to the input dtype. In
-  train mode it normalises with the biased batch variance and updates the
-  running stats with momentum 0.1 and the unbiased variance. Its buffers
-  are ``running_mean`` and ``running_var`` only (no
-  ``num_batches_tracked``), so the JAX package's ``.pth`` export loads with
-  ``strict=True``.
+  train mode it is ``F.batch_norm(training=True)`` (statistics in f32 for a
+  bf16 input): it normalises with the biased batch variance and updates the
+  running stats with momentum 0.1 and the unbiased variance, as the JAX
+  package's ABN does, and keeps only its input for the backward (taking the
+  statistics of an f32 copy of the input in autograd would keep that copy
+  too, for every BN of the network). Its buffers are ``running_mean`` and
+  ``running_var`` only (no ``num_batches_tracked``), so the JAX package's
+  ``.pth`` export loads with ``strict=True``.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 
@@ -53,19 +57,12 @@ class ABN(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
-            x32 = x.float()
-            mean = x32.mean(dim=(0, 2, 3))
-            var = (x32.square().mean(dim=(0, 2, 3)) - mean.square()).clamp_min(0.0)
-            n = x.shape[0] * x.shape[2] * x.shape[3]
-            with torch.no_grad():
-                m = self.momentum
-                self.running_mean.mul_(1 - m).add_(m * mean)
-                self.running_var.mul_(1 - m).add_(m * var * (n / max(n - 1, 1)))
+            y = F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
+                             training=True, momentum=self.momentum, eps=self.eps)
         else:
-            mean, var = self.running_mean, self.running_var
-        scale = self.weight * torch.rsqrt(var + self.eps)
-        shift = self.bias - mean * scale
-        y = x * scale.to(x.dtype)[:, None, None] + shift.to(x.dtype)[:, None, None]
+            scale = self.weight * torch.rsqrt(self.running_var + self.eps)
+            shift = self.bias - self.running_mean * scale
+            y = x * scale.to(x.dtype)[:, None, None] + shift.to(x.dtype)[:, None, None]
         if self.activation == "leaky_relu":
             y = torch.where(y >= 0, y, y * self.slope)
         return y

@@ -9,6 +9,7 @@ unchanged one is loaded as it is. The sources expose a plain C interface
 is compiled: a build takes seconds.
 
 A failed build raises. Nothing here falls back to a plain-torch version.
+:func:`build_libraries` starts one ``nvcc`` per source together.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import shutil
 import subprocess
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -80,3 +82,11 @@ def load_library(name: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(so))
     _LIBS[name] = lib
     return lib
+
+
+def build_libraries(names) -> None:
+    """Build (or load) several libraries, one ``nvcc`` per source, all at once."""
+    names = list(names)
+    with ThreadPoolExecutor(max_workers=len(names)) as ex:
+        for fut in [ex.submit(load_library, n) for n in names]:
+            fut.result()

@@ -1,6 +1,6 @@
-"""Weights across the two packages: flax variables → state_dict, ``.pth`` load.
+"""Checkpoints: ``.pth`` weights in the reference's names, and full train state.
 
-Counterpart of the ``.pth`` half of :mod:`ccnet_tpu.utils.checkpoint`:
+Counterpart of :mod:`ccnet_tpu.utils.checkpoint`:
 
 * :func:`jax_variables_to_state_dict` takes the JAX model's variables as
   nested dicts of numpy arrays (``{'params': ..., 'batch_stats': ...}``)
@@ -11,14 +11,23 @@ Counterpart of the ``.pth`` half of :mod:`ccnet_tpu.utils.checkpoint`:
   reference's lenient ``load_model`` semantics (``utils/pyt_utils.py:47-85``):
   a ``'model'`` wrapper is unwrapped, ``module.`` prefixes are stripped, and
   missing / unexpected keys are reported, raising only under ``strict``.
+  ``restore_last=False`` drops the final classifiers (the reference's
+  ``--not-restore-last``); ``skip_mismatch`` skips keys whose shape differs.
+* :func:`save_pth` writes the model's reference-named state_dict.
+* :func:`save_checkpoint`, :func:`latest_checkpoint_step` and
+  :func:`restore_checkpoint` keep the full train state (weights, BN stats,
+  SGD momentum, LR schedule, step) as ``step_XXXXXXXX.pt`` files written
+  by ``torch.save``, in place of the JAX package's orbax directories.
 
 Only CCNet's modules are mapped; PSPNet/DeepLabv3 come with their port.
 """
 
 from __future__ import annotations
 
+import os
+import os.path as osp
 import re
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -106,10 +115,32 @@ def _normalise_keys(state_dict) -> Dict[str, torch.Tensor]:
     return out
 
 
-def load_pth(path: str, model: torch.nn.Module,
-             strict: bool = False) -> Tuple[List[str], List[str]]:
-    """Load a reference-named ``.pth`` into ``model``; returns (missing, unexpected)."""
+# the final per-class classifier convs (RCCA head, DSN aux head; the PSP/ASPP
+# classifier when those heads are ported): what --not-restore-last skips
+_CLASSIFIER_KEYS = ("head.bottleneck.3", "dsn.3", "head.1")
+
+
+def load_pth(path: str, model: torch.nn.Module, strict: bool = False,
+             skip_mismatch: bool = False,
+             restore_last: bool = True) -> Tuple[List[str], List[str]]:
+    """Load a reference-named ``.pth`` into ``model``; returns (missing, unexpected).
+
+    ``restore_last=False`` drops the classifier keys before loading (they
+    keep the model's values); ``skip_mismatch`` turns a shape mismatch into
+    a skipped (missing) key instead of an error."""
     sd = _normalise_keys(torch.load(path, map_location="cpu", weights_only=False))
+    if not restore_last:
+        sd = {k: v for k, v in sd.items()
+              if not any(k.startswith(c + ".") for c in _CLASSIFIER_KEYS)}
+    own = model.state_dict()
+    mismatched = [k for k, v in sd.items() if k in own and tuple(v.shape) != tuple(own[k].shape)]
+    if mismatched and not skip_mismatch:
+        k = mismatched[0]
+        raise ValueError(f"shape mismatch for {k}: ckpt {tuple(sd[k].shape)} vs model "
+                         f"{tuple(own[k].shape)}")
+    if mismatched:
+        logger.warning(f"{len(mismatched)} keys skipped on shape mismatch: {mismatched[:5]}")
+        sd = {k: v for k, v in sd.items() if k not in mismatched}
     result = model.load_state_dict(sd, strict=False)
     missing, unexpected = list(result.missing_keys), list(result.unexpected_keys)
     if missing:
@@ -119,3 +150,49 @@ def load_pth(path: str, model: torch.nn.Module,
     if strict and (missing or unexpected):
         raise KeyError(f"strict load failed: missing={missing[:10]} unexpected={unexpected[:10]}")
     return missing, unexpected
+
+
+def save_pth(model: torch.nn.Module, path: str) -> None:
+    """Export the model's reference-named state_dict (CPU tensors) to ``path``."""
+    torch.save({k: v.detach().cpu() for k, v in model.state_dict().items()}, path)
+
+
+def _ckpt_path(ckpt_dir: str, step: int) -> str:
+    return osp.join(ckpt_dir, f"step_{step:08d}.pt")
+
+
+def save_checkpoint(ckpt_dir: str, state, step: int) -> str:
+    """Write the full train state (weights, BN stats, SGD momentum, LR
+    schedule, step) to ``ckpt_dir/step_XXXXXXXX.pt``; returns the path."""
+    os.makedirs(ckpt_dir, exist_ok=True)
+    path = _ckpt_path(ckpt_dir, step)
+    torch.save({"model": state.model.state_dict(), "optimizer": state.optimizer.state_dict(),
+                "scheduler": state.scheduler.state_dict(), "step": step}, path)
+    logger.info(f"saved checkpoint {path}")
+    return path
+
+
+def latest_checkpoint_step(ckpt_dir: str) -> Optional[int]:
+    if not osp.isdir(ckpt_dir):
+        return None
+    steps = [int(m.group(1)) for m in map(re.compile(r"^step_(\d+)\.pt$").match,
+                                          os.listdir(ckpt_dir)) if m]
+    return max(steps) if steps else None
+
+
+def restore_checkpoint(ckpt_dir: str, state, step: Optional[int] = None):
+    """Load a full train state into ``state`` in place; ``step=None`` takes
+    the latest. Returns ``state``."""
+    if step is None:
+        step = latest_checkpoint_step(ckpt_dir)
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints in {ckpt_dir}")
+    path = _ckpt_path(ckpt_dir, step)
+    device = next(state.model.parameters()).device
+    ckpt = torch.load(path, map_location=device, weights_only=False)
+    state.model.load_state_dict(ckpt["model"], strict=True)
+    state.optimizer.load_state_dict(ckpt["optimizer"])
+    state.scheduler.load_state_dict(ckpt["scheduler"])
+    state.step = int(ckpt["step"])
+    logger.info(f"restored checkpoint {path}")
+    return state

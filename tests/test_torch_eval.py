@@ -126,7 +126,8 @@ def test_evaluator_matches_jax(tiny, tmp_path):
     tev = Evaluator(torch_apply, device="cpu", **common)
 
     want = jev.run(JaxDataLoader(dataset, 1, shuffle=False, num_workers=1, drop_last=False))
-    got = tev.run(DataLoader(dataset, 1), output_dir=str(tmp_path))
+    got = tev.run(DataLoader(dataset, 1, shuffle=False, drop_last=False),
+                  output_dir=str(tmp_path))
     assert abs(got["meanIU"] - want["meanIU"]) <= 1e-3
     assert len(got["batch_seconds"]) == 2
     assert json.load(open(tmp_path / "result.txt"))["meanIU"] == got["meanIU"]

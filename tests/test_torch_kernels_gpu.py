@@ -8,8 +8,10 @@ no JAX, so on the card it runs without the JAX test configuration:
 
 Tolerances: f32 (TF32 off) at 1e-4 x scale, where only the summation order
 differs; bf16 against the plain version computed in f32 from the same bf16
-inputs at 2e-2 x scale (the kernels round their output to bf16); the model
-at 5e-2 x scale with argmax agreement >= 99.5 % (bf16 layers after CCA).
+inputs at 2e-2 x scale (the kernels round their output to bf16; 3e-2 for
+the backward, whose final grads are rounded too); the model at 5e-2 x
+scale with argmax agreement >= 99.5 % (bf16 layers after CCA). The loss
+kernels: K5 at 1e-5 abs, K6 at 1e-4 x max|plain grad|.
 """
 
 import numpy as np
@@ -18,6 +20,7 @@ import torch
 
 from ccnet_tpu_torch.ops import cc_attention as plain
 from ccnet_tpu_torch.ops import cc_attention_cuda as K
+from ccnet_tpu_torch.ops import upsampled_ce as U
 from ccnet_tpu_torch.utils import is_hopper
 
 SHAPES = [
@@ -62,7 +65,8 @@ def test_kernels_match_plain(cuda, shape, dtype):
         pairs += zip(K.cca_fwd_row(q, k, v, *col), K.cca_fwd_row_plain(q32, k32, v32, *col))
         pairs += zip(K.criss_cross_attention_cuda(q, k, v),
                      plain.criss_cross_attention_stats(q32, k32, v32))
-    assert K.LAUNCHES == {n: c + 2 for n, c in before.items()}
+    assert K.LAUNCHES == {n: c + (2 if n.startswith("cca_fwd") else 0)
+                          for n, c in before.items()}
     for got, want in pairs:
         scale = max(1.0, want.abs().max().item())
         assert (got.float() - want).abs().max().item() <= tol * scale
@@ -85,3 +89,88 @@ def test_tiny_model_kernel_route_matches_plain(cuda):
     scale = max(1.0, want.abs().max().item())
     assert (got - want).abs().max().item() <= 5e-2 * scale
     assert (got.argmax(1) == want.argmax(1)).float().mean().item() >= 0.995
+
+
+def _plain_grads(q, k, v, g):
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    return torch.autograd.grad(plain.criss_cross_attention(*leaves), leaves, g)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_bwd_kernels_match_plain(cuda, shape, dtype):
+    """K3/K4 vs their plain versions, and the Function's grads vs
+    torch.autograd of the plain op in f32 on the same inputs."""
+    tol = {"float32": 1e-4, "bfloat16": 3e-2}[dtype]
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(a).to(cuda, dt) for a in case(5, *shape))
+    g = torch.from_numpy(case(6, *shape)[2]).to(cuda, dt)
+    q32, k32, v32, g32 = q.float(), k.float(), v.float(), g.float()
+    with torch.no_grad():
+        out, m, L = K.criss_cross_attention_cuda(q, k, v)
+        delta = (g32 * out.float()).sum(dim=-1)
+        before = dict(K.LAUNCHES)
+        col = K.cca_bwd_col(q, k, v, g, m, L, delta)
+        row = K.cca_bwd_row(q, k, v, g, m, L, delta, *col)
+        assert K.LAUNCHES["cca_bwd_col"] == before["cca_bwd_col"] + 1
+        assert K.LAUNCHES["cca_bwd_row"] == before["cca_bwd_row"] + 1
+        pairs = list(zip(col, K.cca_bwd_col_plain(q32, k32, v32, g32, m, L, delta)))
+        pairs += zip(row, K.cca_bwd_row_plain(q32, k32, v32, g32, m, L, delta, *col))
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    pairs += zip(torch.autograd.grad(K.criss_cross_attention_cuda(*leaves)[0], leaves, g),
+                 _plain_grads(q32, k32, v32, g32))
+    for got, want in pairs:
+        scale = max(1.0, want.abs().max().item())
+        assert (got.float() - want.float()).abs().max().item() <= tol * scale
+
+
+LOSS_SHAPES = [(8, 97, 97, 19, 8), (2, 5, 7, 4, 3), (1, 9, 9, 6, 4)]  # B, h, w, C, r
+
+
+@pytest.mark.parametrize("label_dtype", ["int32", "uint8"])
+@pytest.mark.parametrize("shape", LOSS_SHAPES)
+def test_loss_kernels_match_plain(cuda, shape, label_dtype):
+    B, h, w, C, r = shape
+    H, W = (h - 1) * r + 1, (w - 1) * r + 1
+    rng = np.random.RandomState(7)
+    logits = torch.from_numpy(rng.randn(B, C, h, w).astype(np.float32)).to(cuda)
+    labels = rng.randint(0, C, (B, H, W)).astype(np.int32)
+    labels[rng.rand(B, H, W) < 0.15] = 255
+    labels = torch.from_numpy(labels.astype(label_dtype)).to(cuda)
+    g = torch.from_numpy(rng.rand(B, H, W).astype(np.float32)).to(cuda)
+    before = dict(U.LAUNCHES)
+    nll = U.upsampled_nll_fwd(logits, labels)
+    dl = U.upsampled_nll_bwd(logits, labels, g)
+    assert U.LAUNCHES == {n: c + 1 for n, c in before.items()}
+    want_nll = U.upsampled_nll_reference(logits, labels)
+    want_dl = U.upsampled_nll_bwd_plain(logits, labels, g)
+    assert (nll - want_nll).abs().max().item() <= 1e-5
+    assert (dl - want_dl).abs().max().item() <= 1e-4 * want_dl.abs().max().item()
+
+
+def test_tiny_train_step_kernel_route_matches_plain(cuda):
+    """One f32 train step of a tiny CCNet with gamma = 0.5, kernels (CCA and
+    NLL) vs plain, from the same state: loss and CCA grads agree."""
+    from ccnet_tpu_torch.losses import build_criterion
+    from ccnet_tpu_torch.models import CCNet
+    from ccnet_tpu_torch.train import create_train_state, make_train_step
+
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.RandomState(8)
+    x = torch.from_numpy(rng.randn(2, 3, 129, 129).astype(np.float32) * 50).to(cuda)
+    y = torch.from_numpy(rng.randint(0, 5, (2, 129, 129)).astype(np.int32)).to(cuda)
+    results = []
+    for impl in ("kernel", "torch"):
+        torch.manual_seed(0)
+        model = CCNet(num_classes=5, layers=(1, 1, 1, 1), recurrence=2, drop_rate=0.0,
+                      impl=impl).to(cuda)
+        model.head.cca.gamma.data.fill_(0.5)  # gamma = 0 would zero every CCA grad
+        state = create_train_state(model, base_lr=1e-2, max_steps=10)
+        loss = make_train_step(build_criterion(ohem=True, min_kept=2000, impl=impl))(
+            state, x, y)["loss"]
+        results.append((loss.item(), {n: p.grad.clone() for n, p in model.named_parameters()
+                                      if n.startswith("head.cca.")}))
+    (lk, gk), (lt, gt) = results
+    assert abs(lk - lt) <= 1e-4 * abs(lt)
+    for name, want in gt.items():
+        assert (gk[name] - want).abs().max().item() <= 1e-3 * max(want.abs().max().item(), 1e-6)
