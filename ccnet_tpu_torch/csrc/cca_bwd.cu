@@ -47,8 +47,7 @@
 // training, 129 x 257 for the whole image, H = 1 (the column path is all
 // self slot: p = 0, every column grad is 0) and W = 1.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "cca_common.cuh"
 
 namespace {
 
@@ -62,24 +61,6 @@ constexpr int QC = 32;          // queries per chunk of the key-major pass
 constexpr int MAX_CQ = 128;
 constexpr int DQ_PER_THREAD = QT * MAX_CQ / THREADS;  // 8
 constexpr int DK_PER_THREAD = KB * MAX_CQ / THREADS;  // 16
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// Row stride (floats) of a shared tile whose rows hold `c4` (a multiple of
-// 4) values and are read as float4 by the lanes of a warp, one row per lane:
-// stride / 4 odd puts 8 consecutive rows in 8 distinct 16-byte bank groups.
-__host__ __device__ __forceinline__ int padded_stride(int c4) {
-  return 4 * ((c4 / 4) | 1);
-}
-
-__host__ __device__ __forceinline__ int round4(int c) { return (c + 3) & ~3; }
 
 // Pixel index of position t of line `line` is base + t * step.
 __device__ __forceinline__ void line_geometry(bool col, int line, int H, int W,

@@ -39,9 +39,9 @@
 // all self slot: m_col = -1e9, l_col = 1, and exp(-1e9 - m) in the combine
 // is exactly 0, never NaN.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math_constants.h>
+
+#include "cca_common.cuh"
 
 namespace {
 
@@ -52,27 +52,6 @@ constexpr int NWARPS = THREADS / 32;
 constexpr int ROWS_PER_WARP = TQ / NWARPS;
 constexpr int MAX_CQ = 128;
 constexpr float MASK = -1e9f;           // NEG_INF of ccnet_tpu/ops/cc_attention.py
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
 
 size_t smem_bytes(int Cq) {
   return sizeof(float) * (size_t(KT) * TQ + 3 * TQ + size_t(TQ + KT) * (Cq + 1));

@@ -1,9 +1,10 @@
 """Criss-cross attention through the hand-written CUDA kernels, with its backward.
 
-Counterpart of :mod:`ccnet_tpu.ops.cc_attention_pallas` (``_fwd_impl_natural``,
-``_bwd_natural`` and the custom VJP around them). The kernels live in
-``ccnet_tpu_torch/csrc/cca_fwd.cu`` and ``csrc/cca_bwd.cu``; each has a
-wrapper here and a plain PyTorch version beside it:
+Counterpart of :mod:`ccnet_tpu.ops.cc_attention_pallas` (``_fwd_impl``,
+``_bwd_both_paths`` and the custom VJP around them). The kernels live in
+``ccnet_tpu_torch/csrc/cca_fwd.cu``, ``csrc/cca_bwd.cu`` and
+``csrc/cca_lines.cu``; each has a wrapper here and a plain PyTorch version
+beside it:
 
 * K1 :func:`cca_fwd_col` replaces ``_fwd_col_kernel``: the column path with
   the self slot at −1e9, giving the unnormalised aggregate ``o_col`` (f32)
@@ -16,16 +17,29 @@ wrapper here and a plain PyTorch version beside it:
   version :func:`cca_bwd_col_plain`.
 * K4 :func:`cca_bwd_row` replaces ``_bwd_row_kernel``: the row path's grads
   plus K3's, in the input dtype; plain version :func:`cca_bwd_row_plain`.
+* K7a :func:`cca_line_fwd` replaces ``_legacy_fwd_kernel``: ONE path over
+  ``(B, M, N, C)`` lines, optionally self-masked; plain version
+  :func:`cca_line_fwd_plain`.
+* K7b :func:`cca_line_bwd` replaces ``_legacy_bwd_kernel``: that path's
+  backward from the joint stats, with no O(N) scratch per pixel; plain
+  version :func:`cca_line_bwd_plain`.
 
 :class:`CrissCrossAttentionFn` is the ``torch.autograd.Function`` around
-them (the JAX package's ``_cca_pallas`` custom VJP): K1 then K2 forward,
-``delta = Σ_c out·g`` in plain torch, then K3 and K4 backward.
-:func:`criss_cross_attention_cuda` goes through it.
+them (the JAX package's ``_cca_pallas`` custom VJP). Like ``_fwd_impl`` it
+picks one of two routes per call (:func:`uses_line_route`): K1 → K2
+forward and K3 → K4 backward on short lines (the 97² sliding tiles and
+769² crops), or the line route (:func:`cca_line_route_fwd`,
+:func:`cca_line_route_bwd`, the counterparts of ``_legacy_fwd_impl`` and
+``_legacy_bwd_both_paths``) on long ones: K7a/K7b once per path, the column
+path read in place through a transposed view, the two-path combine and the
+gradient sum in plain torch. :func:`criss_cross_attention_cuda` goes
+through it.
 
 The libraries are built with ``nvcc`` at first use (:mod:`._build`) and
 bound with ctypes: every pointer and the stream go as ``c_void_p`` (a bare
 Python int would be passed as a 32-bit C int and cut the pointer), every
-int as ``c_int``. Launches are asynchronous on the current stream.
+int as ``c_int``, the line strides as ``c_longlong``. Launches are
+asynchronous on the current stream.
 
 Routing is by the tensors' device: CPU tensors take the plain versions and
 leave :data:`LAUNCHES` alone; CUDA tensors launch the kernels or raise.
@@ -44,7 +58,16 @@ import torch
 from ccnet_tpu_torch.ops.cc_attention import NEG_INF
 
 # launches of each kernel made by this process; callers may reset them to 0
-LAUNCHES = {"cca_fwd_col": 0, "cca_fwd_row": 0, "cca_bwd_col": 0, "cca_bwd_row": 0}
+LAUNCHES = {"cca_fwd_col": 0, "cca_fwd_row": 0, "cca_bwd_col": 0, "cca_bwd_row": 0,
+            "cca_line_fwd": 0, "cca_line_bwd": 0}
+
+# A call takes the line route (K7a/K7b) when its longer axis exceeds this.
+# It mirrors where ``_fwd_impl`` / ``_bwd_both_paths`` leave K1–K4 at the
+# model's widths (Cq 64, Cv 512, bf16): ``_pick_tile``'s 11 MiB budget holds
+# fewer than 8 lines past ~130 (columns) / ~122 (rows) forward and ~99 /
+# ~106 backward. So the 97² sliding tiles and 769² crops run K1–K4, and
+# every whole-image shape (features 97×193 at scale 0.75 and up) K7a/K7b.
+LONG_LINE = 128
 
 MAX_CQ = 128  # the kernels stage 48 lines of Cq f32 q/k values in shared memory
 MAX_SMEM = 227 * 1024  # dynamic shared memory one block may use on Hopper
@@ -81,8 +104,31 @@ def _bwd_lib():
     return lib
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
-    """Validate q/k/v; return the route, ``"cpu"`` or ``"cuda"``."""
+def _lines_lib():
+    from ccnet_tpu_torch.ops._build import load_library
+
+    lib = load_library("cca_lines")
+    if not getattr(lib, "_ccnet_bound", False):
+        _L = ctypes.c_longlong
+        lib.cca_line_fwd.argtypes = [_P] * 6 + [_I] * 5 + [_L] * 3 + [_I, _I, _P]
+        lib.cca_line_fwd.restype = ctypes.c_int
+        lib.cca_line_bwd.argtypes = [_P] * 10 + [_I] * 5 + [_L] * 3 + [_I, _I, _P]
+        lib.cca_line_bwd.restype = ctypes.c_int
+        lib.cca_line_bwd_smem_bytes.argtypes = [_I, _I]
+        lib.cca_line_bwd_smem_bytes.restype = ctypes.c_longlong
+        lib._ccnet_bound = True
+    return lib
+
+
+def uses_line_route(H: int, W: int) -> bool:
+    """Whether a call on ``(B, H, W, C)`` features takes the line route
+    (K7a/K7b) rather than K1–K4: its longer axis exceeds :data:`LONG_LINE`."""
+    return max(H, W) > LONG_LINE
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lines: bool = False) -> str:
+    """Validate q/k/v; return the route, ``"cpu"`` or ``"cuda"``. ``lines``:
+    the K7a/K7b wrappers check the layout themselves (:func:`_check_lines`)."""
     if q.dim() != 4 or k.shape != q.shape or v.dim() != 4 or v.shape[:3] != q.shape[:3]:
         raise ValueError(f"criss-cross attention wants q, k (B, H, W, Cq) and v "
                          f"(B, H, W, Cv); got {tuple(q.shape)}, {tuple(k.shape)}, "
@@ -97,88 +143,99 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     if q.device.type != "cuda":
         raise ValueError(f"criss-cross attention kernels: unsupported device {q.device}")
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if not t.is_contiguous():
+        if not lines and not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous NHWC")
     if q.shape[-1] > MAX_CQ:
         raise ValueError(f"Cq={q.shape[-1]} exceeds the kernels' limit of {MAX_CQ}")
     return "cuda"
 
 
-def _check_like(name: str, t: torch.Tensor, shape, device, dtype=torch.float32) -> None:
+def _check_like(name: str, t: torch.Tensor, shape, device, dtype=torch.float32,
+                lines: bool = False) -> None:
     if tuple(t.shape) != tuple(shape) or t.dtype != dtype or t.device != device:
         raise ValueError(f"{name} must be {dtype} {tuple(shape)} on {device}; got "
                          f"{t.dtype} {tuple(t.shape)} on {t.device}")
-    if device.type == "cuda" and not t.is_contiguous():
+    if device.type == "cuda" and not lines and not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
 
 
-def _check_bwd(q, k, v, g, m, L, delta) -> str:
+def _check_bwd(q, k, v, g, m, L, delta, lines: bool = False) -> str:
     """Validate the backward's inputs; return the route."""
-    route = _check(q, k, v)
+    route = _check(q, k, v, lines)
     B, H, W, _ = q.shape
-    _check_like("g", g, v.shape, q.device, v.dtype)
+    _check_like("g", g, v.shape, q.device, v.dtype, lines)
     for name, t in (("m", m), ("L", L), ("delta", delta)):
-        _check_like(name, t, (B, H, W), q.device)
+        _check_like(name, t, (B, H, W), q.device, lines=lines)
     return route
 
 
 # ------------------------------------------------------------ plain versions
 
 
-def cca_fwd_col_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
-    """Column path in plain torch: ``(o_col f32, m_col, l_col)``."""
-    H = q.shape[1]
-    e = torch.einsum("bhwc,bkwc->bhwk", q.float(), k.float())
-    diag = torch.eye(H, dtype=torch.bool, device=q.device)[:, None, :]
-    e = e.masked_fill(diag[None], NEG_INF)
+def _to_col(x: torch.Tensor) -> torch.Tensor:
+    """NHWC ``(B, H, W, ...)`` → its column lines ``(B, W, H, ...)``, a view."""
+    return x.transpose(1, 2)
+
+
+def cca_line_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, masked: bool):
+    """One path over ``(B, M, N, C)`` lines in plain torch: ``(o f32, m, l)``
+    with ``e = q·kᵀ`` along N (the diagonal at −1e9 when ``masked``),
+    ``m = max e``, ``l = Σ exp(e − m)``, unnormalised ``o = exp(e − m)·v``."""
+    e = torch.einsum("bmic,bmjc->bmij", q.float(), k.float())
+    if masked:
+        e = e.masked_fill(torch.eye(q.shape[2], dtype=torch.bool, device=q.device), NEG_INF)
     m = e.amax(dim=-1)
     p = torch.exp(e - m[..., None])
-    o = torch.einsum("bhwk,bkwc->bhwc", p, v.float())
-    return o, m, p.sum(dim=-1)
+    return torch.einsum("bmij,bmjc->bmic", p, v.float()), m, p.sum(dim=-1)
+
+
+def cca_line_bwd_plain(q, k, v, g, m, L, delta, masked: bool):
+    """One path's backward over ``(B, M, N, C)`` lines in plain torch:
+    ``(dq, dk, dv)`` f32. ``p = exp(e − m) / L`` with the joint stats,
+    ``de = p·(g·vᵀ − delta)``, ``dq = de·k``, ``dk = deᵀ·q``, ``dv = pᵀ·g``."""
+    e = torch.einsum("bmic,bmjc->bmij", q.float(), k.float())
+    if masked:
+        e = e.masked_fill(torch.eye(q.shape[2], dtype=torch.bool, device=q.device), NEG_INF)
+    p = torch.exp(e - m[..., None]) / L[..., None]
+    de = p * (torch.einsum("bmic,bmjc->bmij", g.float(), v.float()) - delta[..., None])
+    return (torch.einsum("bmij,bmjc->bmic", de, k.float()),
+            torch.einsum("bmij,bmic->bmjc", de, q.float()),
+            torch.einsum("bmij,bmic->bmjc", p, g.float()))
+
+
+def _combine(o_c, m_c, l_c, o_r, m_r, l_r):
+    """The joint softmax over both paths: ``(out f32, m, L)`` with
+    ``m = max(m_c, m_r)``, ``L = l_c·e^{m_c−m} + l_r·e^{m_r−m}`` and
+    ``out = (o_c·e^{m_c−m} + o_r·e^{m_r−m}) / L``."""
+    m = torch.maximum(m_c, m_r)
+    a_c, a_r = torch.exp(m_c - m), torch.exp(m_r - m)
+    L = l_c * a_c + l_r * a_r
+    return (o_c * a_c[..., None] + o_r * a_r[..., None]) / L[..., None], m, L
+
+
+def cca_fwd_col_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """Column path in plain torch: ``(o_col f32, m_col, l_col)``, NHWC."""
+    return tuple(map(_to_col, cca_line_fwd_plain(*map(_to_col, (q, k, v)), masked=True)))
 
 
 def cca_fwd_row_plain(q, k, v, o_col, m_col, l_col):
     """Row path + joint-softmax combine in plain torch: ``(out, m, L)``."""
-    e = torch.einsum("bhwc,bhvc->bhwv", q.float(), k.float())
-    m_r = e.amax(dim=-1)
-    p = torch.exp(e - m_r[..., None])
-    o_r = torch.einsum("bhwv,bhvc->bhwc", p, v.float())
-    m = torch.maximum(m_col, m_r)
-    a_c, a_r = torch.exp(m_col - m), torch.exp(m_r - m)
-    L = l_col * a_c + p.sum(dim=-1) * a_r
-    out = (o_col * a_c[..., None] + o_r * a_r[..., None]) / L[..., None]
+    out, m, L = _combine(o_col, m_col, l_col, *cca_line_fwd_plain(q, k, v, masked=False))
     return out.to(v.dtype), m, L
 
 
 def cca_bwd_col_plain(q, k, v, g, m, L, delta):
-    """Column-path backward in plain torch: ``(dq_c, dk_c, dv_c)`` f32.
-
-    ``p = exp(e − m) / L`` with the joint stats (the self slot's −1e9 gives
-    p = 0), ``de = p·(g·vᵀ − delta)``, ``dq = de·k``, ``dk = deᵀ·q``,
-    ``dv = pᵀ·g`` over each column."""
-    H = q.shape[1]
-    e = torch.einsum("bhwc,bkwc->bhwk", q.float(), k.float())
-    diag = torch.eye(H, dtype=torch.bool, device=q.device)[:, None, :]
-    e = e.masked_fill(diag[None], NEG_INF)
-    p = torch.exp(e - m[..., None]) / L[..., None]
-    dp = torch.einsum("bhwc,bkwc->bhwk", g.float(), v.float())
-    de = p * (dp - delta[..., None])
-    return (torch.einsum("bhwk,bkwc->bhwc", de, k.float()),
-            torch.einsum("bhwk,bhwc->bkwc", de, q.float()),
-            torch.einsum("bhwk,bhwc->bkwc", p, g.float()))
+    """Column-path backward in plain torch: ``(dq_c, dk_c, dv_c)`` f32, NHWC
+    (the self slot's −1e9 gives p = 0)."""
+    cols = map(_to_col, (q, k, v, g, m, L, delta))
+    return tuple(map(_to_col, cca_line_bwd_plain(*cols, masked=True)))
 
 
 def cca_bwd_row_plain(q, k, v, g, m, L, delta, dq_c, dk_c, dv_c):
     """Row-path backward plus the column grads, in plain torch:
     ``(dq, dk, dv)`` in the input dtype."""
-    e = torch.einsum("bhwc,bhvc->bhwv", q.float(), k.float())
-    p = torch.exp(e - m[..., None]) / L[..., None]
-    dp = torch.einsum("bhwc,bhvc->bhwv", g.float(), v.float())
-    de = p * (dp - delta[..., None])
-    dq = torch.einsum("bhwv,bhvc->bhwc", de, k.float()) + dq_c
-    dk = torch.einsum("bhwv,bhwc->bhvc", de, q.float()) + dk_c
-    dv = torch.einsum("bhwv,bhwc->bhvc", p, g.float()) + dv_c
-    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+    row = cca_line_bwd_plain(q, k, v, g, m, L, delta, masked=False)
+    return tuple((r + c).to(t.dtype) for r, c, t in zip(row, (dq_c, dk_c, dv_c), (q, k, v)))
 
 
 # ------------------------------------------------------------------ kernels
@@ -280,17 +337,110 @@ def cca_bwd_row(q, k, v, g, m, L, delta, dq_c, dk_c, dv_c):
     return tuple(outs)
 
 
+def _check_lines(name: str, t: torch.Tensor, col: bool) -> None:
+    """Raise unless ``t`` is laid out as the line kernels read it: contiguous
+    lines (``col`` False), or the column lines ``x.transpose(1, 2)`` of a
+    contiguous NHWC ``x``."""
+    if not (_to_col(t) if col else t).is_contiguous():
+        raise ValueError(f"{name} must be contiguous (B, M, N, ...) lines or the "
+                         f"transpose(1, 2) of a contiguous tensor, as q is")
+
+
+def _line_launch(name, q, tensors, outs, masked):
+    """Launch K7a or K7b on ``(B, M, N, C)`` lines: row lines are contiguous,
+    column lines a transposed view; the kernel reads and writes every tensor
+    through the pixel strides (batch, line, position) of that layout."""
+    B, M, N, Cq = q.shape
+    col = not q.is_contiguous()
+    for i, t in enumerate((*tensors, *outs)):
+        _check_lines(f"{name} argument {i}", t, col)
+    strides = (M * N, 1, M) if col else (M * N, N, 1)
+    Cv = tensors[2].shape[-1]
+    ptrs = [_P(t.data_ptr()) for t in (*tensors, *outs)]
+    lib = _lines_lib()
+    rc = getattr(lib, name)(*ptrs, B, M, N, Cq, Cv, *strides, int(masked),
+                            int(q.dtype == torch.bfloat16),
+                            _P(torch.cuda.current_stream().cuda_stream))
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+    LAUNCHES[name] += 1
+
+
+def _empty_lines(like: torch.Tensor, shape) -> torch.Tensor:
+    """f32 ``shape`` in ``like``'s line layout (contiguous or column view)."""
+    if like.is_contiguous():
+        return torch.empty(shape, device=like.device, dtype=torch.float32)
+    return _to_col(torch.empty((shape[0], shape[2], shape[1], *shape[3:]),
+                               device=like.device, dtype=torch.float32))
+
+
+def cca_line_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, masked: bool):
+    """K7a: one path over ``(B, M, N, C)`` lines, attention along N:
+    ``(o (B,M,N,Cv) f32, m (B,M,N) f32, l (B,M,N) f32)``, the outputs in q's
+    line layout (so column stats land in NHWC order with no copy).
+    ``masked`` sets the diagonal to −1e9 (the column path)."""
+    if _check(q, k, v, lines=True) == "cpu":
+        return cca_line_fwd_plain(q, k, v, masked)
+    B, M, N, _ = q.shape
+    with torch.cuda.device(q.device):
+        outs = (_empty_lines(q, (B, M, N, v.shape[-1])), _empty_lines(q, (B, M, N)),
+                _empty_lines(q, (B, M, N)))
+        _line_launch("cca_line_fwd", q, (q, k, v), outs, masked)
+    return outs
+
+
+def cca_line_bwd(q, k, v, g, m, L, delta, masked: bool):
+    """K7b: one path's ``(dq, dk, dv)`` f32 over ``(B, M, N, C)`` lines from
+    the joint stats ``m``, ``L`` and ``delta = Σ_c out·g`` (``(B, M, N)``
+    f32), ``g`` in v's dtype; every tensor in q's line layout."""
+    if _check_bwd(q, k, v, g, m, L, delta, lines=True) == "cpu":
+        return cca_line_bwd_plain(q, k, v, g, m, L, delta, masked)
+    smem = _lines_lib().cca_line_bwd_smem_bytes(q.shape[-1], v.shape[-1])
+    if smem > MAX_SMEM:
+        raise ValueError(f"cca_line_bwd: Cv={v.shape[-1]} needs {smem} B of shared memory, "
+                         f"over {MAX_SMEM}")
+    with torch.cuda.device(q.device):
+        outs = tuple(_empty_lines(q, t.shape) for t in (q, k, v))
+        _line_launch("cca_line_bwd", q, (q, k, v, g, m, L, delta), outs, masked)
+    return outs
+
+
+def cca_line_route_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """The line route's forward on NHWC q, k, v (``_legacy_fwd_impl``): K7a on
+    the columns (masked) and on the rows, then the joint combine in plain
+    torch. Returns ``(out f32, m, L)``."""
+    col = map(_to_col, cca_line_fwd(*map(_to_col, (q, k, v)), masked=True))
+    return _combine(*col, *cca_line_fwd(q, k, v, masked=False))
+
+
+def cca_line_route_bwd(q, k, v, g, m, L, delta):
+    """The line route's backward (``_legacy_bwd_both_paths``): K7b on the
+    columns and on the rows, summed and cast to the input dtypes."""
+    col = cca_line_bwd(*map(_to_col, (q, k, v, g, m, L, delta)), masked=True)
+    row = cca_line_bwd(q, k, v, g, m, L, delta, masked=False)
+    return tuple((_to_col(c) + r).to(t.dtype) for c, r, t in zip(col, row, (q, k, v)))
+
+
 class CrissCrossAttentionFn(torch.autograd.Function):
-    """Criss-cross attention with the kernels' backward: forward K1 → K2,
-    saving ``(q, k, v, out, m, L)``; backward ``delta = Σ_c out·g`` in plain
-    torch (as ``_cca_bwd`` does), then K3 → K4. Returns ``(out, m, L)``;
+    """Criss-cross attention with the kernels' backward, routed once per call
+    by :func:`uses_line_route`. Short lines: forward K1 → K2, saving
+    ``(q, k, v, out, m, L)``; backward ``delta = Σ_c out·g`` in plain torch
+    (as ``_cca_bwd`` does), then K3 → K4. Long lines: the line route, which
+    saves its f32 combine output for ``delta`` (the JAX legacy route's
+    residual) and returns it cast to v's dtype. Returns ``(out, m, L)``;
     ``m`` and ``L`` are not differentiable. On CPU tensors every step takes
     its plain version."""
 
     @staticmethod
     def forward(ctx, q, k, v):
-        out, m, L = cca_fwd_row(q, k, v, *cca_fwd_col(q, k, v))
-        ctx.save_for_backward(q, k, v, out, m, L)
+        ctx.line = uses_line_route(q.shape[1], q.shape[2])
+        if ctx.line:
+            saved, m, L = cca_line_route_fwd(q, k, v)
+            out = saved.to(v.dtype)
+        else:
+            out, m, L = cca_fwd_row(q, k, v, *cca_fwd_col(q, k, v))
+            saved = out
+        ctx.save_for_backward(q, k, v, saved, m, L)
         ctx.mark_non_differentiable(m, L)
         return out, m, L
 
@@ -299,13 +449,15 @@ class CrissCrossAttentionFn(torch.autograd.Function):
         q, k, v, out, m, L = ctx.saved_tensors
         g = g.to(v.dtype).contiguous()
         delta = (g.float() * out.float()).sum(dim=-1)
-        grads = cca_bwd_row(q, k, v, g, m, L, delta, *cca_bwd_col(q, k, v, g, m, L, delta))
-        return grads
+        if ctx.line:
+            return cca_line_route_bwd(q, k, v, g, m, L, delta)
+        return cca_bwd_row(q, k, v, g, m, L, delta, *cca_bwd_col(q, k, v, g, m, L, delta))
 
 
 def criss_cross_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
-    """Fused criss-cross attention, K1 then K2, differentiable through K3
-    and K4 (:class:`CrissCrossAttentionFn`): ``(out, m, L)``.
+    """Fused criss-cross attention through :class:`CrissCrossAttentionFn`:
+    K1/K2 (K7a on long lines) forward, differentiable through K3/K4 (K7b):
+    ``(out, m, L)``.
 
     q, k: (B, H, W, Cq); v: (B, H, W, Cv); NHWC, one dtype (f32 or bf16).
     ``out`` (B, H, W, Cv) is in v's dtype; ``m``, ``L`` are (B, H, W) f32,

@@ -196,7 +196,8 @@ def test_cuda_module_imports_without_nvcc():
     code = ("import ccnet_tpu_torch.ops.cc_attention_cuda as K, ccnet_tpu_torch.ops._build as b;"
             "import ccnet_tpu_torch.ops.upsampled_ce as U, ccnet_tpu_torch.train.trainer;"
             "assert b._LIBS == {} and set(K.LAUNCHES) == {'cca_fwd_col', 'cca_fwd_row', "
-            "'cca_bwd_col', 'cca_bwd_row'} and not any(K.LAUNCHES.values());"
+            "'cca_bwd_col', 'cca_bwd_row', 'cca_line_fwd', 'cca_line_bwd'} "
+            "and not any(K.LAUNCHES.values());"
             "assert U.LAUNCHES == {'upsampled_nll_fwd': 0, 'upsampled_nll_bwd': 0}")
     env = {k: v for k, v in os.environ.items() if k not in ("CUDA_HOME", "CUDA_PATH")}
     env["PATH"] = os.path.dirname(sys.executable)  # no nvcc on it

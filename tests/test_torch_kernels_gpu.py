@@ -9,9 +9,10 @@ no JAX, so on the card it runs without the JAX test configuration:
 Tolerances: f32 (TF32 off) at 1e-4 x scale, where only the summation order
 differs; bf16 against the plain version computed in f32 from the same bf16
 inputs at 2e-2 x scale (the kernels round their output to bf16; 3e-2 for
-the backward, whose final grads are rounded too); the model at 5e-2 x
-scale with argmax agreement >= 99.5 % (bf16 layers after CCA). The loss
-kernels: K5 at 1e-5 abs, K6 at 1e-4 x max|plain grad|.
+the backward, whose final grads are rounded too, and for the line route
+K7a/K7b); the model at 5e-2 x scale with argmax agreement >= 99.5 % (bf16
+layers after CCA). The loss kernels: K5 at 1e-5 abs, K6 at 1e-4 x
+max|plain grad|.
 """
 
 import numpy as np
@@ -65,7 +66,9 @@ def test_kernels_match_plain(cuda, shape, dtype):
         pairs += zip(K.cca_fwd_row(q, k, v, *col), K.cca_fwd_row_plain(q32, k32, v32, *col))
         pairs += zip(K.criss_cross_attention_cuda(q, k, v),
                      plain.criss_cross_attention_stats(q32, k32, v32))
-    assert K.LAUNCHES == {n: c + (2 if n.startswith("cca_fwd") else 0)
+    line = K.uses_line_route(shape[1], shape[2])  # the op takes K7a there, not K1/K2
+    assert K.LAUNCHES == {n: c + {"cca_fwd_col": 2 - line, "cca_fwd_row": 2 - line,
+                                  "cca_line_fwd": 2 * line}.get(n, 0)
                           for n, c in before.items()}
     for got, want in pairs:
         scale = max(1.0, want.abs().max().item())
@@ -119,6 +122,47 @@ def test_bwd_kernels_match_plain(cuda, shape, dtype):
     leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
     pairs += zip(torch.autograd.grad(K.criss_cross_attention_cuda(*leaves)[0], leaves, g),
                  _plain_grads(q32, k32, v32, g32))
+    for got, want in pairs:
+        scale = max(1.0, want.abs().max().item())
+        assert (got.float() - want.float()).abs().max().item() <= tol * scale
+
+
+# the line route's shapes (B, H, W, Cq, Cv): the whole image at scales 1.0
+# and 1.75, and edge shapes with N = 1 on either path
+LINE_SHAPES = [(1, 129, 257, 64, 512), (1, 225, 449, 64, 512), (2, 9, 441, 8, 16),
+               (1, 1, 300, 4, 8), (1, 300, 1, 4, 8)]
+# the two views the line route hands K7a/K7b: (masked, view of NHWC)
+LINE_PATHS = ((True, K._to_col), (False, lambda t: t))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", LINE_SHAPES)
+def test_line_kernels_match_plain(cuda, shape, dtype):
+    """K7a and K7b on both paths vs their plain versions, from the joint
+    stats of the route's own combine, and the routed Function's output and
+    grads vs torch.autograd of the plain op in f32."""
+    tol = {"float32": 1e-4, "bfloat16": 3e-2}[dtype]
+    dt = getattr(torch, dtype)
+    assert K.uses_line_route(shape[1], shape[2])
+    q, k, v = (torch.from_numpy(a).to(cuda, dt) for a in case(9, *shape))
+    g = torch.from_numpy(case(10, *shape)[2]).to(cuda, dt)
+    f32 = [t.float() for t in (q, k, v, g)]
+    pairs = []
+    with torch.no_grad():
+        before = dict(K.LAUNCHES)
+        out, m, L = K.cca_line_route_fwd(q, k, v)
+        delta = (f32[3] * out).sum(dim=-1)
+        for masked, view in LINE_PATHS:
+            pairs += zip(K.cca_line_fwd(view(q), view(k), view(v), masked),
+                         K.cca_line_fwd_plain(*(view(t) for t in f32[:3]), masked))
+            pairs += zip(K.cca_line_bwd(*(view(t) for t in (q, k, v, g, m, L, delta)), masked),
+                         K.cca_line_bwd_plain(*(view(t) for t in (*f32, m, L, delta)), masked))
+        assert K.LAUNCHES == {n: c + {"cca_line_fwd": 4, "cca_line_bwd": 2}.get(n, 0)
+                              for n, c in before.items()}
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = K.criss_cross_attention_cuda(*leaves)[0]
+    pairs.append((out, plain.criss_cross_attention(*f32[:3])))
+    pairs += zip(torch.autograd.grad(out, leaves, g), _plain_grads(*f32))
     for got, want in pairs:
         scale = max(1.0, want.abs().max().item())
         assert (got.float() - want.float()).abs().max().item() <= tol * scale
