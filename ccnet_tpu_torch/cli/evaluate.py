@@ -4,6 +4,7 @@ Counterpart of :mod:`ccnet_tpu.cli.evaluate`, with the same flags plus
 ``--device`` (default ``cuda``; asking for CUDA where there is none raises).
 The default run is CCNet-R101, R=2, bf16, 769² sliding windows; on a CUDA
 device the criss-cross attention goes through the hand-written kernels.
+``--model pspnet`` and ``--model deeplabv3`` score those heads' ``.pth``.
 
     python -m ccnet_tpu_torch.cli.evaluate --synthetic --restore-from ccnet.pth
 

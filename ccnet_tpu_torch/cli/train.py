@@ -5,18 +5,19 @@
 The default run is the reference recipe: CCNet-R101, R=2, 19 classes, bf16
 compute over f32 master weights, batch 8 of 769² crops, poly-LR SGD with
 momentum 0.9 and weight decay 1e-4 (``--ohem 1`` for the OHEM+DSN
-criterion). On a CUDA device the criss-cross attention and the
-upsample+NLL loss, forward and backward, go through the hand-written
-kernels. ``--device`` defaults to ``cuda`` and raises without CUDA;
-``--fp32 1`` computes in f32 with TF32 off. ``--batch-size`` is the batch
+criterion). ``--model pspnet`` and ``--model deeplabv3`` train the PSP and
+ASPP heads on the same trunk (``--recurrence`` does not apply to them). On a
+CUDA device the criss-cross attention and the upsample+NLL loss, forward
+and backward, go through the hand-written kernels. ``--device`` defaults
+to ``cuda`` and raises without CUDA; ``--fp32 1`` computes in f32 with TF32
+off. ``--batch-size`` is the batch
 of the one process. ``--synthetic`` trains on generated 1024×2048 images
 with the on-device augmentation.
 
-Not ported yet (they raise): ``--dataset voc``, ``--model pspnet`` /
-``deeplabv3``, ``--augment-backend native``, ``--remat`` other than
-``none``, ``--tensorboard`` and ``--profile-steps``. ``--num-workers`` and
-``--cache-decoded`` are accepted for the JAX CLI's surface; the loader is
-single-threaded and caches nothing.
+Not ported yet (they raise): ``--dataset voc``, ``--augment-backend
+native``, ``--remat`` other than ``none``, ``--tensorboard`` and
+``--profile-steps``. ``--num-workers`` and ``--cache-decoded`` are accepted
+for the JAX CLI's surface; the loader is single-threaded and caches nothing.
 """
 
 from __future__ import annotations
@@ -95,8 +96,6 @@ def main(argv=None):
     logger = get_logger("ccnet_tpu_torch.cli.train")
     if args.dataset == "voc":
         raise NotImplementedError("--dataset voc is not ported yet")
-    if args.model != "ccnet":
-        raise NotImplementedError(f"--model {args.model} is not ported yet")
     if args.augment_backend == "native":
         raise NotImplementedError("--augment-backend native is not ported yet")
     device = resolve_device(args.device)

@@ -13,7 +13,8 @@ align_corners=True before the pixel loss. The per-pixel NLL routes by
 * ``"torch"`` — the plain version.
 
 The JAX package's ``CCNET_TPU_FUSED_NLL`` switch is not carried over.
-``criterion_ohem_dsn2`` (Lovász) is not ported yet.
+``criterion_ohem_dsn2`` (CE + Lovász-softmax) needs the full-resolution
+softmax anyway, so it keeps the materialised upsample and takes no ``impl``.
 """
 
 from __future__ import annotations
@@ -23,8 +24,10 @@ from typing import Callable, Dict
 
 import torch
 
-from ccnet_tpu_torch.losses.cross_entropy import masked_mean
+from ccnet_tpu_torch.losses.cross_entropy import masked_mean, softmax_cross_entropy_ignore
+from ccnet_tpu_torch.losses.lovasz import lovasz_softmax
 from ccnet_tpu_torch.losses.ohem import ohem_keep_mask
+from ccnet_tpu_torch.ops.resize import resize_bilinear_align_corners
 from ccnet_tpu_torch.ops.upsampled_ce import (
     UpsampledNLLFn,
     integer_upsample_ratio,
@@ -75,8 +78,13 @@ def criterion_ohem_dsn(outputs: Dict[str, torch.Tensor], labels: torch.Tensor,
     return loss1 + 0.4 * loss2
 
 
-def criterion_ohem_dsn2(outputs, labels, ignore_label: int = 255):
-    raise NotImplementedError("criterion_ohem_dsn2 (CE + Lovász-softmax) is not ported yet")
+def criterion_ohem_dsn2(outputs: Dict[str, torch.Tensor], labels: torch.Tensor,
+                        ignore_label: int = 255) -> torch.Tensor:
+    """CE(main) + Lovász-softmax(main), on the materialised f32 upsample."""
+    up = resize_bilinear_align_corners(outputs["main"], labels.shape[1:])
+    loss1 = softmax_cross_entropy_ignore(up, labels, ignore_label)
+    loss2 = lovasz_softmax(torch.softmax(up, dim=1), labels, ignore_label)
+    return loss1 + loss2
 
 
 def build_criterion(ohem: bool = False, use_lovasz: bool = False, ignore_label: int = 255,
@@ -86,7 +94,7 @@ def build_criterion(ohem: bool = False, use_lovasz: bool = False, ignore_label: 
     if impl not in NLL_IMPLS:
         raise ValueError(f"impl must be one of {NLL_IMPLS}, got {impl!r}")
     if use_lovasz:
-        raise NotImplementedError("use_lovasz (criterion_ohem_dsn2) is not ported yet")
+        return partial(criterion_ohem_dsn2, ignore_label=ignore_label)
     if ohem:
         return partial(criterion_ohem_dsn, ignore_label=ignore_label, thresh=thresh,
                        min_kept=min_kept, impl=impl)

@@ -143,7 +143,19 @@ class DSNHead(nn.Sequential):
         )
 
 
-class CCNet(DilatedResNet):
+class DSNSegmenter(DilatedResNet):
+    """The trunk with a subclass's ``head`` on layer4 and its :class:`DSNHead`
+    ``dsn`` on layer3 (CCNet, PSPNet, DeepLabv3). Returns {'main', 'aux'} f32
+    logits at OS 8."""
+
+    def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+        x3, x4 = super().forward(x)
+        aux = self.dsn(x3)
+        main = self.head(x4)
+        return {"main": main.float(), "aux": aux.float()}
+
+
+class CCNet(DSNSegmenter):
     """Full CCNet segmentation model. Returns {'main', 'aux'} f32 logits at OS 8.
 
     The backbone's modules sit at the top level (``conv1``, ``layer3.0``), as
@@ -162,9 +174,3 @@ class CCNet(DilatedResNet):
         if impl not in CCA_IMPLS:
             raise ValueError(f"impl must be one of {CCA_IMPLS}, got {impl!r}")
         self.head.cca.impl = impl
-
-    def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
-        x3, x4 = super().forward(x)
-        aux = self.dsn(x3)
-        main = self.head(x4)
-        return {"main": main.float(), "aux": aux.float()}

@@ -1,7 +1,8 @@
 """Model registry — explicit name→builder mapping.
 
-Counterpart of :mod:`ccnet_tpu.models.registry`. Only CCNet is ported;
-PSPNet and DeepLabv3 come later.
+Counterpart of :mod:`ccnet_tpu.models.registry`: ``ccnet``, ``pspnet`` and
+``deeplabv3``. The two heads without criss-cross attention accept and
+ignore ``recurrence`` and ``impl``, as the JAX registry does.
 """
 
 from __future__ import annotations
@@ -9,6 +10,8 @@ from __future__ import annotations
 import torch
 
 from ccnet_tpu_torch.models.ccnet import CCNet
+from ccnet_tpu_torch.models.deeplabv3 import DeepLabV3
+from ccnet_tpu_torch.models.pspnet import PSPNet
 
 _DEPTH_LAYERS = {50: (3, 4, 6, 3), 101: (3, 4, 23, 3), 152: (3, 8, 36, 3)}
 
@@ -21,12 +24,18 @@ def build_model(name: str, num_classes: int = 19, recurrence: int = 2, depth: in
     ``device``."""
     if depth not in _DEPTH_LAYERS:
         raise ValueError(f"unknown depth {depth}; available: {sorted(_DEPTH_LAYERS)}")
-    if name in ("pspnet", "deeplabv3"):
-        raise NotImplementedError(f"model {name!r} is not ported yet")
-    if name != "ccnet":
-        raise ValueError(f"unknown model {name!r}; available: ccnet, pspnet, deeplabv3")
+    layers = _DEPTH_LAYERS[depth]
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
-        model = CCNet(num_classes=num_classes, layers=_DEPTH_LAYERS[depth],
-                      recurrence=recurrence, impl=impl, drop_rate=drop_rate, dtype=dtype)
+        if name == "ccnet":
+            model = CCNet(num_classes=num_classes, layers=layers, recurrence=recurrence,
+                          impl=impl, drop_rate=drop_rate, dtype=dtype)
+        elif name == "pspnet":
+            model = PSPNet(num_classes=num_classes, layers=layers, drop_rate=drop_rate,
+                           dtype=dtype)
+        elif name == "deeplabv3":
+            model = DeepLabV3(num_classes=num_classes, layers=layers, drop_rate=drop_rate,
+                              dtype=dtype)
+        else:
+            raise ValueError(f"unknown model {name!r}; available: ccnet, pspnet, deeplabv3")
     return model.eval().to(device)

@@ -13,7 +13,11 @@ Counterpart of :mod:`ccnet_tpu.nn.layers`, NCHW.
   running stats with momentum 0.1 and the unbiased variance, as the JAX
   package's ABN does, and keeps only its input for the backward (taking the
   statistics of an f32 copy of the input in autograd would keep that copy
-  too, for every BN of the network). Its buffers are ``running_mean`` and
+  too, for every BN of the network). With one value per channel (the
+  DeepLabv3 image-pool ABN at batch 1), where ``F.batch_norm`` raises, it
+  does what the JAX package does: zero variance, so the output is β (up to
+  rounding), and the running variance updated with ``var·n/max(n−1, 1)``
+  = 0. Its buffers are ``running_mean`` and
   ``running_var`` only (no ``num_batches_tracked``), so the JAX package's
   ``.pth`` export loads with ``strict=True``.
 """
@@ -56,7 +60,9 @@ class ABN(nn.Module):
         self.register_buffer("running_var", torch.ones(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
+        if self.training and x.numel() == x.shape[1]:
+            y = self._train_one_value(x)
+        elif self.training:
             y = F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
                              training=True, momentum=self.momentum, eps=self.eps)
         else:
@@ -66,3 +72,13 @@ class ABN(nn.Module):
         if self.activation == "leaky_relu":
             y = torch.where(y >= 0, y, y * self.slope)
         return y
+
+    def _train_one_value(self, x: torch.Tensor) -> torch.Tensor:
+        """Train mode with one value per channel: the JAX ABN's formula."""
+        mean = x.float().mean(dim=(0, 2, 3))
+        scale = self.weight * self.eps ** -0.5  # rsqrt(var + eps) at var = 0
+        shift = self.bias - mean * scale
+        with torch.no_grad():
+            self.running_mean.mul_(1 - self.momentum).add_(self.momentum * mean)
+            self.running_var.mul_(1 - self.momentum)  # + momentum * 0
+        return x * scale.to(x.dtype)[:, None, None] + shift.to(x.dtype)[:, None, None]

@@ -7,7 +7,9 @@ and at the end, and an emergency save when a run is interrupted.
 
 On a CUDA device the criss-cross attention (forward and backward) and the
 upsample+NLL loss (forward and backward) go through the hand-written
-kernels; ``impl="torch"`` takes the plain versions of both.
+kernels; ``impl="torch"`` takes the plain versions of both. ``model`` is
+``ccnet``, ``pspnet`` or ``deeplabv3``; the last two have no attention, so
+``impl`` routes only their loss.
 
 Not ported yet (they raise): ``augment_backend="native"``, ``remat`` other
 than off, ``tensorboard`` and ``profile_steps``; ``space`` > 1.

@@ -19,7 +19,7 @@ Counterpart of :mod:`ccnet_tpu.utils.checkpoint`:
   SGD momentum, LR schedule, step) as ``step_XXXXXXXX.pt`` files written
   by ``torch.save``, in place of the JAX package's orbax directories.
 
-Only CCNet's modules are mapped; PSPNet/DeepLabv3 come with their port.
+CCNet's, PSPNet's and DeepLabv3's modules are mapped.
 """
 
 from __future__ import annotations
@@ -46,6 +46,18 @@ _RCCA_MAP = {
     "classifier": "head.bottleneck.3",
 }
 _DSN_MAP = {"conv": "dsn.0", "bn": "dsn.1", "classifier": "dsn.3"}
+# PSP head (reference networks/pspnet.py:62-113); stage i is psp.stage{i}_conv/_bn
+_PSP_MAP = {"bottleneck_conv": "head.0.bottleneck.0", "bottleneck_bn": "head.0.bottleneck.1"}
+_PSP_STAGE_RE = re.compile(r"^stage(\d+)_(conv|bn)$")
+# ASPP head (reference networks/deeplabv3.py:62-126)
+_ASPP_MAP = {
+    "image_pool_conv": "head.0.conv1.1", "image_pool_bn": "head.0.conv1.2",
+    "conv1x1": "head.0.conv2.0", "conv1x1_bn": "head.0.conv2.1",
+    "atrous0_conv": "head.0.conv3.0", "atrous0_bn": "head.0.conv3.1",
+    "atrous1_conv": "head.0.conv4.0", "atrous1_bn": "head.0.conv4.1",
+    "atrous2_conv": "head.0.conv5.0", "atrous2_bn": "head.0.conv5.1",
+    "bottleneck_conv": "head.0.bottleneck.0", "bottleneck_bn": "head.0.bottleneck.1",
+}
 
 
 def _module_to_torch(mods: Tuple[str, ...]) -> str:
@@ -70,8 +82,15 @@ def _module_to_torch(mods: Tuple[str, ...]) -> str:
         if mods[1] == "cca":
             return "head.cca." + ".".join(mods[2:]) if len(mods) > 2 else "head.cca"
         return _RCCA_MAP[mods[1]]
-    if top in ("psp", "aspp", "classifier"):
-        raise NotImplementedError(f"flax module path {mods}: PSPNet/DeepLabv3 are not ported yet")
+    if top == "psp":
+        stage = _PSP_STAGE_RE.match(mods[1])
+        if stage:
+            return f"head.0.stages.{stage.group(1)}.{1 if stage.group(2) == 'conv' else 2}"
+        return _PSP_MAP[mods[1]]
+    if top == "aspp":
+        return _ASPP_MAP[mods[1]]
+    if top == "classifier":  # the PSP/ASPP top-level 1x1 classifier
+        return "head.1"
     raise KeyError(f"no torch mapping for flax module path {mods}")
 
 
@@ -115,8 +134,8 @@ def _normalise_keys(state_dict) -> Dict[str, torch.Tensor]:
     return out
 
 
-# the final per-class classifier convs (RCCA head, DSN aux head; the PSP/ASPP
-# classifier when those heads are ported): what --not-restore-last skips
+# the final per-class classifier convs (RCCA head, DSN aux head, the PSP/ASPP
+# classifier): what --not-restore-last skips
 _CLASSIFIER_KEYS = ("head.bottleneck.3", "dsn.3", "head.1")
 
 

@@ -218,3 +218,59 @@ def test_tiny_train_step_kernel_route_matches_plain(cuda):
     assert abs(lk - lt) <= 1e-4 * abs(lt)
     for name, want in gt.items():
         assert (gk[name] - want).abs().max().item() <= 1e-3 * max(want.abs().max().item(), 1e-6)
+
+
+# the probes P1–P5 (ccnet_tpu_torch/csrc/probes.cu): the script's shapes,
+# ragged edges, and the model's (K1's column logits, the column-major copy of v)
+PROBE_DOT_SHAPES = [(96, 16, 64), (7, 3, 70)]                      # (H, T, C)
+PROBE_DOT4_SHAPES = [(2, 96, 33, 64), (8, 97, 97, 64), (1, 33, 5, 8)]  # (B, H, W, C)
+PROBE_SWAP_SHAPES = [(96, 16, 128), (9, 13, 8)]                    # (A, B, C)
+PROBE_STORE_SHAPES = [(2, 96, 33, 512), (8, 97, 97, 512), (1, 9, 17, 8)]
+PROBE_SCALE_SHAPES = [(97, 256), (1, 1), (3, 1000)]
+
+
+def _probe_in(seed, shape, cuda, dtype=torch.bfloat16):
+    return torch.from_numpy(np.random.RandomState(seed).randn(*shape).astype(np.float32)).to(
+        cuda, dtype)
+
+
+def _dot_close(got, want):  # same bf16 products, f32 sums in another order
+    assert tuple(got.shape) == tuple(want.shape) and got.dtype == torch.float32
+    scale = max(1.0, want.abs().max().item())
+    assert (got - want).abs().max().item() <= 1e-4 * scale
+
+
+@pytest.mark.parametrize("shape", PROBE_DOT_SHAPES)
+def test_probe_mid_batch_dot_matches_plain(cuda, shape):
+    from ccnet_tpu_torch.ops import probes as P
+
+    q, k = _probe_in(11, shape, cuda), _probe_in(12, shape, cuda)
+    before = P.LAUNCHES["mid_batch_dot"]
+    got = P.mid_batch_dot(q, k)
+    assert P.LAUNCHES["mid_batch_dot"] == before + 1
+    _dot_close(got, P.mid_batch_dot_plain(q, k))
+
+
+@pytest.mark.parametrize("shape", PROBE_DOT4_SHAPES)
+def test_probe_mid_batch_dot_4d_matches_plain(cuda, shape):
+    from ccnet_tpu_torch.ops import probes as P
+
+    q, k = _probe_in(13, shape, cuda), _probe_in(14, shape, cuda)
+    before = P.LAUNCHES["mid_batch_dot_4d"]
+    got = P.mid_batch_dot_4d(q, k)
+    assert P.LAUNCHES["mid_batch_dot_4d"] == before + 1
+    _dot_close(got, P.mid_batch_dot_4d_plain(q, k))
+
+
+@pytest.mark.parametrize("kind,shape", [("swap_leading", s) for s in PROBE_SWAP_SHAPES]
+                         + [("store_transposed", s) for s in PROBE_STORE_SHAPES]
+                         + [("scale_ragged", s) for s in PROBE_SCALE_SHAPES])
+def test_probe_copies_are_bit_exact(cuda, kind, shape):
+    from ccnet_tpu_torch.ops import probes as P
+
+    x = _probe_in(15, shape, cuda, torch.float32 if kind == "scale_ragged" else torch.bfloat16)
+    before = P.LAUNCHES[kind]
+    got = getattr(P, kind)(x)
+    assert P.LAUNCHES[kind] == before + 1
+    want = getattr(P, f"{kind}_plain")(x)
+    assert got.shape == want.shape and torch.equal(got, want)

@@ -162,10 +162,13 @@ def test_kernel_impl_on_cpu_raises(tiny):
 
 
 def test_registry():
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        build_model("pspnet")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        build_model("deeplabv3")
+    # the heads without attention accept and ignore recurrence and impl
+    for name, head in (("pspnet", "PSPModule"), ("deeplabv3", "ASPPModule")):
+        m = build_model(name, num_classes=3, depth=50, recurrence=5, impl="kernel")
+        assert type(m.head[0]).__name__ == head and m.head[1].out_channels == 3
+        assert not any(".cca." in k for k in m.state_dict())
+    with pytest.raises(ValueError, match="unknown model"):
+        build_model("fcn")
     a = build_model("ccnet", num_classes=3, depth=50, seed=7)
     b = build_model("ccnet", num_classes=3, depth=50, seed=7)
     assert not a.training and len(a.layer3) == 6
