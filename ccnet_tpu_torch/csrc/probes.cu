@@ -48,9 +48,7 @@
 // probe_scale: y = s x, one thread per element, the tail of the last block
 // masked. Exact for s = 2.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "mma_bf16.cuh"
 
 namespace {
 
@@ -61,19 +59,6 @@ constexpr int NT = 64;            // key rows g per tile: 8 mma tiles of 8
 constexpr int KC = 64;            // channels staged per pass: 4 mma steps of 16
 constexpr int KP = KC + 8;        // padded row: 36 words, fragment loads hit 32 banks
 constexpr int DOT_THREADS = 128;
-
-__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
-                                          const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ uint32_t pair(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
 
 __global__ void __launch_bounds__(DOT_THREADS)
 mid_batch_dot_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,

@@ -13,10 +13,14 @@ beside it:
   with the joint-softmax combine, giving ``out`` in v's dtype and the joint
   ``(m, L)`` residuals; plain version :func:`cca_fwd_row_plain`.
 * K3 :func:`cca_bwd_col` replaces ``_bwd_col_kernel``: the column path's
-  dq, dk, dv (f32) recomputed from ``(q, k, m, L)`` and ``delta``; plain
-  version :func:`cca_bwd_col_plain`.
+  dq, dk, dv in the input dtype, recomputed from ``(q, k, m, L)`` and
+  ``delta``; plain version :func:`cca_bwd_col_plain`.
 * K4 :func:`cca_bwd_row` replaces ``_bwd_row_kernel``: the row path's grads
   plus K3's, in the input dtype; plain version :func:`cca_bwd_row_plain`.
+  K3 and K4 each have two designs (:func:`bwd_design`): bf16 lines of at
+  most :data:`LONG_LINE` go to the tensor-core kernel (one block per line,
+  no scratch), f32 and longer bf16 lines to the CUDA-core pair (f32
+  arithmetic, p and de through f32 scratch).
 * K7a :func:`cca_line_fwd` replaces ``_legacy_fwd_kernel``: ONE path over
   ``(B, M, N, C)`` lines, optionally self-masked; plain version
   :func:`cca_line_fwd_plain`.
@@ -57,9 +61,11 @@ import torch
 
 from ccnet_tpu_torch.ops.cc_attention import NEG_INF
 
-# launches of each kernel made by this process; callers may reset them to 0
+# launches of each kernel made by this process; callers may reset them to 0.
+# ``cca_bwd_col_tc`` / ``cca_bwd_row_tc`` count the K3/K4 launches that took
+# the tensor-core design (each also counts under ``cca_bwd_col`` / ``_row``).
 LAUNCHES = {"cca_fwd_col": 0, "cca_fwd_row": 0, "cca_bwd_col": 0, "cca_bwd_row": 0,
-            "cca_line_fwd": 0, "cca_line_bwd": 0}
+            "cca_bwd_col_tc": 0, "cca_bwd_row_tc": 0, "cca_line_fwd": 0, "cca_line_bwd": 0}
 
 # A call takes the line route (K7a/K7b) when its longer axis exceeds this.
 # It mirrors where ``_fwd_impl`` / ``_bwd_both_paths`` leave K1–K4 at the
@@ -98,6 +104,10 @@ def _bwd_lib():
         lib.cca_bwd_col.restype = ctypes.c_int
         lib.cca_bwd_row.argtypes = [_P] * 15 + [_I] * 6 + [_P]
         lib.cca_bwd_row.restype = ctypes.c_int
+        lib.cca_bwd_col_tc.argtypes = [_P] * 10 + [_I] * 5 + [_P]
+        lib.cca_bwd_col_tc.restype = ctypes.c_int
+        lib.cca_bwd_row_tc.argtypes = [_P] * 13 + [_I] * 5 + [_P]
+        lib.cca_bwd_row_tc.restype = ctypes.c_int
         lib.cca_bwd_query_smem_bytes.argtypes = [_I, _I]
         lib.cca_bwd_query_smem_bytes.restype = ctypes.c_longlong
         lib._ccnet_bound = True
@@ -189,15 +199,20 @@ def cca_line_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, masked
     return torch.einsum("bmij,bmjc->bmic", p, v.float()), m, p.sum(dim=-1)
 
 
-def cca_line_bwd_plain(q, k, v, g, m, L, delta, masked: bool):
+def cca_line_bwd_plain(q, k, v, g, m, L, delta, masked: bool, round_to=None):
     """One path's backward over ``(B, M, N, C)`` lines in plain torch:
     ``(dq, dk, dv)`` f32. ``p = exp(e − m) / L`` with the joint stats,
-    ``de = p·(g·vᵀ − delta)``, ``dq = de·k``, ``dk = deᵀ·q``, ``dv = pᵀ·g``."""
+    ``de = p·(g·vᵀ − delta)``, ``dq = de·k``, ``dk = deᵀ·q``, ``dv = pᵀ·g``.
+    ``round_to`` (a dtype) rounds ``de`` and ``p`` to it before the
+    products that consume them, as the TPU kernels feed their bf16 MXU
+    operands under the default precision; the sums stay f32."""
     e = torch.einsum("bmic,bmjc->bmij", q.float(), k.float())
     if masked:
         e = e.masked_fill(torch.eye(q.shape[2], dtype=torch.bool, device=q.device), NEG_INF)
     p = torch.exp(e - m[..., None]) / L[..., None]
     de = p * (torch.einsum("bmic,bmjc->bmij", g.float(), v.float()) - delta[..., None])
+    if round_to is not None:
+        p, de = p.to(round_to).float(), de.to(round_to).float()
     return (torch.einsum("bmij,bmjc->bmic", de, k.float()),
             torch.einsum("bmij,bmic->bmjc", de, q.float()),
             torch.einsum("bmij,bmic->bmjc", p, g.float()))
@@ -224,18 +239,27 @@ def cca_fwd_row_plain(q, k, v, o_col, m_col, l_col):
     return out.to(v.dtype), m, L
 
 
+def _mxu_round(q: torch.Tensor):
+    """What the plain backward rounds ``p`` and ``de`` to: bf16 for bf16
+    inputs (the JAX package's default precision), nothing for f32 (its
+    "highest")."""
+    return torch.bfloat16 if q.dtype == torch.bfloat16 else None
+
+
 def cca_bwd_col_plain(q, k, v, g, m, L, delta):
-    """Column-path backward in plain torch: ``(dq_c, dk_c, dv_c)`` f32, NHWC
-    (the self slot's −1e9 gives p = 0)."""
+    """Column-path backward in plain torch: ``(dq_c, dk_c, dv_c)`` in the
+    input dtype, NHWC (the self slot's −1e9 gives p = 0)."""
     cols = map(_to_col, (q, k, v, g, m, L, delta))
-    return tuple(map(_to_col, cca_line_bwd_plain(*cols, masked=True)))
+    grads = cca_line_bwd_plain(*cols, masked=True, round_to=_mxu_round(q))
+    return tuple(_to_col(d).to(t.dtype) for d, t in zip(grads, (q, k, v)))
 
 
 def cca_bwd_row_plain(q, k, v, g, m, L, delta, dq_c, dk_c, dv_c):
     """Row-path backward plus the column grads, in plain torch:
     ``(dq, dk, dv)`` in the input dtype."""
-    row = cca_line_bwd_plain(q, k, v, g, m, L, delta, masked=False)
-    return tuple((r + c).to(t.dtype) for r, c, t in zip(row, (dq_c, dk_c, dv_c), (q, k, v)))
+    row = cca_line_bwd_plain(q, k, v, g, m, L, delta, masked=False, round_to=_mxu_round(q))
+    return tuple((r + c.float()).to(t.dtype)
+                 for r, c, t in zip(row, (dq_c, dk_c, dv_c), (q, k, v)))
 
 
 # ------------------------------------------------------------------ kernels
@@ -291,49 +315,92 @@ def cca_fwd_row(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o_col: torch.
     return out, m, L
 
 
-def _bwd_launch(name, q, k, v, g, m, L, delta, extra_in, outs):
-    """Launch K3 or K4 with freshly allocated P/DE scratch of the path."""
+BWD_DESIGNS = ("tensor_core", "cuda_core")
+
+
+def bwd_design(q: torch.Tensor) -> str:
+    """The design K3/K4 take for ``q``: ``"tensor_core"`` (one block per
+    line, bf16 products on the tensor cores, no scratch) for bf16 lines of
+    at most :data:`LONG_LINE` on both paths, which is every call
+    :class:`CrissCrossAttentionFn` sends to K3/K4; ``"cuda_core"`` (f32
+    arithmetic, p and de through f32 scratch) for f32 and for longer lines,
+    which only a forced call makes."""
+    if q.dtype == torch.bfloat16 and not uses_line_route(q.shape[1], q.shape[2]):
+        return "tensor_core"
+    return "cuda_core"
+
+
+def _resolve_design(name: str, q: torch.Tensor, design) -> str:
+    """``design`` checked against ``q`` (``None``: :func:`bwd_design`)."""
+    if design is None:
+        return bwd_design(q)
+    if design not in BWD_DESIGNS:
+        raise ValueError(f"{name}: design must be one of {BWD_DESIGNS}; got {design!r}")
+    if design == "tensor_core" and bwd_design(q) != design:
+        raise ValueError(f"{name}: the tensor-core design takes bf16 lines of at most "
+                         f"{LONG_LINE}; got {q.dtype} {tuple(q.shape)}")
+    return design
+
+
+def _bwd_launch(name, design, q, k, v, g, m, L, delta, extra_in, outs):
+    """Launch K3 or K4 in ``design``. The CUDA-core design gets freshly
+    allocated P/DE scratch of the path."""
     B, H, W, Cq = q.shape
     Cv = v.shape[-1]
     lib = _bwd_lib()
-    smem = lib.cca_bwd_query_smem_bytes(Cq, Cv)
-    if smem > MAX_SMEM:
-        raise ValueError(f"{name}: Cv={Cv} needs {smem} B of shared memory, over {MAX_SMEM}")
+    stream = _P(torch.cuda.current_stream().cuda_stream)
     n = H if name == "cca_bwd_col" else W
-    P = torch.empty((B * H * W * n,), device=q.device, dtype=torch.float32)
-    DE = torch.empty_like(P)
-    ptrs = [t.data_ptr() for t in (q, k, v, g, m, L, delta, P, DE, *extra_in, *outs)]
-    rc = getattr(lib, name)(*map(_P, ptrs), B, H, W, Cq, Cv, int(q.dtype == torch.bfloat16),
-                            _P(torch.cuda.current_stream().cuda_stream))
+    if design == "tensor_core":  # at most 142 KB of shared memory (N = Cq = 128)
+        ptrs = (q, k, v, g, m, L, delta, *extra_in, *outs)
+        rc = getattr(lib, f"{name}_tc")(*(_P(t.data_ptr()) for t in ptrs), B, H, W, Cq, Cv,
+                                        stream)
+    else:
+        smem = lib.cca_bwd_query_smem_bytes(Cq, Cv)
+        if smem > MAX_SMEM:
+            raise ValueError(f"{name}: Cv={Cv} needs {smem} B of shared memory, over {MAX_SMEM}")
+        P = torch.empty((B * H * W * n,), device=q.device, dtype=torch.float32)
+        DE = torch.empty_like(P)
+        ptrs = (q, k, v, g, m, L, delta, P, DE, *extra_in, *outs)
+        rc = getattr(lib, name)(*(_P(t.data_ptr()) for t in ptrs), B, H, W, Cq, Cv,
+                                int(q.dtype == torch.bfloat16), stream)
     if rc != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+        raise RuntimeError(f"{name} ({design}) launch failed: CUDA error {rc}")
     LAUNCHES[name] += 1
+    if design == "tensor_core":
+        LAUNCHES[f"{name}_tc"] += 1
 
 
-def cca_bwd_col(q, k, v, g, m, L, delta):
-    """K3: column-path ``(dq_c, dk_c, dv_c)``, f32 ``(B, H, W, C)``.
+def cca_bwd_col(q, k, v, g, m, L, delta, design=None):
+    """K3: column-path ``(dq_c, dk_c, dv_c)``, ``(B, H, W, C)`` in the input
+    dtype.
 
     ``g`` is the output grad in v's dtype; ``m``, ``L`` the joint stats of
-    the forward; ``delta = Σ_c out·g``, all ``(B, H, W)`` f32."""
-    if _check_bwd(q, k, v, g, m, L, delta) == "cpu":
+    the forward; ``delta = Σ_c out·g``, all ``(B, H, W)`` f32. ``design``
+    forces one of :data:`BWD_DESIGNS` on a CUDA tensor (to time one against
+    the other); ``None`` takes :func:`bwd_design`."""
+    route = _check_bwd(q, k, v, g, m, L, delta)
+    design = _resolve_design("cca_bwd_col", q, design)
+    if route == "cpu":
         return cca_bwd_col_plain(q, k, v, g, m, L, delta)
     with torch.cuda.device(q.device):
-        outs = [torch.empty(t.shape, device=q.device, dtype=torch.float32) for t in (q, k, v)]
-        _bwd_launch("cca_bwd_col", q, k, v, g, m, L, delta, (), outs)
+        outs = [torch.empty_like(t) for t in (q, k, v)]
+        _bwd_launch("cca_bwd_col", design, q, k, v, g, m, L, delta, (), outs)
     return tuple(outs)
 
 
-def cca_bwd_row(q, k, v, g, m, L, delta, dq_c, dk_c, dv_c):
-    """K4: row-path grads plus K3's ``(dq_c, dk_c, dv_c)``: the final
-    ``(dq, dk, dv)`` in the input dtype."""
+def cca_bwd_row(q, k, v, g, m, L, delta, dq_c, dk_c, dv_c, design=None):
+    """K4: row-path grads plus K3's ``(dq_c, dk_c, dv_c)`` (in the input
+    dtype): the final ``(dq, dk, dv)`` in the input dtype. ``design`` as
+    for :func:`cca_bwd_col`."""
     route = _check_bwd(q, k, v, g, m, L, delta)
     for name, t, ref in (("dq_c", dq_c, q), ("dk_c", dk_c, k), ("dv_c", dv_c, v)):
-        _check_like(name, t, ref.shape, q.device)
+        _check_like(name, t, ref.shape, q.device, ref.dtype)
+    design = _resolve_design("cca_bwd_row", q, design)
     if route == "cpu":
         return cca_bwd_row_plain(q, k, v, g, m, L, delta, dq_c, dk_c, dv_c)
     with torch.cuda.device(q.device):
         outs = [torch.empty_like(t) for t in (q, k, v)]
-        _bwd_launch("cca_bwd_row", q, k, v, g, m, L, delta, (dq_c, dk_c, dv_c), outs)
+        _bwd_launch("cca_bwd_row", design, q, k, v, g, m, L, delta, (dq_c, dk_c, dv_c), outs)
     return tuple(outs)
 
 

@@ -17,7 +17,10 @@ failure raises and exits non-zero:
    off) and bf16; CUDA-event times of kernel vs plain at the sliding shape;
 4. backward kernels vs plain: K3 ``cca_bwd_col`` and K4 ``cca_bwd_row``
    against their plain versions, and the autograd Function's grads against
-   torch.autograd of the plain op, at the same shapes and dtypes; times;
+   torch.autograd of the plain op, at the same shapes and dtypes (bf16
+   lines of at most 128, plus edge lines: the tensor-core design against the
+   plain version on the same bf16 tensors; f32 and the long shape: the
+   CUDA-core pair); times of both designs at the sliding shape;
 5. loss kernels vs plain: K5 ``upsampled_nll_fwd`` and K6
    ``upsampled_nll_bwd`` against the materialised upsample + NLL and its
    autograd, int32 and uint8 labels; times at (8, 97, 97, 19) → 769²;
@@ -71,8 +74,9 @@ line of per-kernel results, then, as the last line,
 
     python3 chip_smoke.py --profile
 
-also profiles one kernel-route train step of PSPNet and DeepLabv3 and
-prints their top kernels by device time.
+also profiles one kernel-route train step of CCNet (769², batch 8),
+PSPNet and DeepLabv3 and prints their top kernels by device time and the
+time of the attention kernels (``cca_*``) among them.
 """
 
 from __future__ import annotations
@@ -107,6 +111,14 @@ TIMING_REPS = 20
 # bf16 against the plain version in f32 from the same bf16 inputs, where the
 # kernels round the output and the final grads to bf16
 BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+# the tensor-core K3/K4 against the plain version fed the same bf16 tensors,
+# which rounds p, de and the grads where the kernels do: f32 sums in another
+# order flip one of those roundings here and there (the same plain version
+# and the TPU kernels in interpret mode agree to 7.2e-4 x scale on the CPU)
+TC_TOL = 1e-2
+# edge lines of the tensor-core design beyond SHAPES (B, H, W, Cq, Cv): the
+# longest line (128) on both paths, N = 16 / 17 with 4 or 8 q/k channels
+TC_EDGE_SHAPES = [(1, 128, 128, 64, 512), (2, 16, 17, 8, 16), (1, 17, 16, 4, 512)]
 # B, H, W, Cq, Cv of the line route: whole image at scale 1.0 (and full-frame
 # training), at scale 1.75, and edge shapes (N = 1 on either path)
 LINE_SHAPES = [(1, 129, 257, 64, 512), (1, 225, 449, 64, 512), (2, 9, 441, 8, 16),
@@ -448,53 +460,68 @@ def phase_kernels() -> dict:
 
 def phase_bwd_kernels() -> dict:
     """K3/K4 against their plain versions, and the autograd Function's grads
-    against torch.autograd of the plain op, at every shape in f32 and bf16."""
+    against torch.autograd of the plain op, at every shape in f32 and bf16
+    (and the edge lines of the tensor-core design in bf16). Where the call
+    takes the tensor-core design (bf16, lines of at most 128) the plain
+    version gets the same bf16 tensors and rounds where the kernels round;
+    elsewhere (the CUDA-core pair) it computes in f32. Then times of both
+    designs at the sliding shape."""
     from ccnet_tpu_torch.ops import cc_attention as plain
     from ccnet_tpu_torch.ops import cc_attention_cuda as K
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     report = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        tol = BWD_TOL[dtype]
-        for shape in SHAPES:
-            q, k, v = _inputs(shape, dtype, seed=sum(shape) + 1)
-            g = _inputs(shape, dtype, seed=sum(shape) + 2)[2]
-            q32, k32, v32, g32 = q.float(), k.float(), v.float(), g.float()
-            with torch.no_grad():
-                out, m, L = K.criss_cross_attention_cuda(q, k, v)
-                delta = (g32 * out.float()).sum(dim=-1)
-                before = dict(K.LAUNCHES)
-                col = K.cca_bwd_col(q, k, v, g, m, L, delta)
-                row = K.cca_bwd_row(q, k, v, g, m, L, delta, *col)
-                torch.cuda.synchronize()
-                if (K.LAUNCHES["cca_bwd_col"] != before["cca_bwd_col"] + 1
-                        or K.LAUNCHES["cca_bwd_row"] != before["cca_bwd_row"] + 1):
-                    raise RuntimeError(f"launch counts did not advance: {before} -> {K.LAUNCHES}")
-                col_p = K.cca_bwd_col_plain(q32, k32, v32, g32, m, L, delta)
-                row_p = K.cca_bwd_row_plain(q32, k32, v32, g32, m, L, delta, *col)
-            errs = {}
-            for kern, got_t, want_t in (("K3", col, col_p), ("K4", row, row_p)):
-                for name, got, want in zip(("dq", "dk", "dv"), got_t, want_t):
-                    errs[f"{kern}.{name}"] = _rel_check(f"{kern} {name} at {shape} {dtype}",
-                                                        got, want, tol)
-            # the Function (K1 K2 K3 K4) vs torch.autograd of the plain op in f32
-            leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
-            grads = torch.autograd.grad(K.criss_cross_attention_cuda(*leaves)[0], leaves, g)
-            leaves32 = [t.detach().clone().requires_grad_(True) for t in (q32, k32, v32)]
-            grads_p = torch.autograd.grad(plain.criss_cross_attention(*leaves32), leaves32, g32)
-            for name, got, want in zip(("dq", "dk", "dv"), grads, grads_p):
-                errs[f"fn.{name}"] = _rel_check(f"Function {name} at {shape} {dtype}",
-                                                got, want, tol)
-            if shape == SLIDING and dtype == torch.bfloat16:
-                for kern, key in (("K3", "cca_bwd_col"), ("K4", "cca_bwd_row")):
-                    report[key] = {"max_abs_err": max(e for n, e in errs.items()
-                                                      if n.startswith(kern))}
-            log(f"[bwd] {str(dtype)[6:]} {shape}: ok (tol {tol:g} x scale) "
-                + " ".join(f"{n}={e:.2e}" for n, e in errs.items()))
+    cases = [(torch.float32, s) for s in SHAPES]
+    cases += [(torch.bfloat16, s) for s in SHAPES + TC_EDGE_SHAPES]
+    for dtype, shape in cases:
+        q, k, v = _inputs(shape, dtype, seed=sum(shape) + 1)
+        g = _inputs(shape, dtype, seed=sum(shape) + 2)[2]
+        q32, k32, v32, g32 = q.float(), k.float(), v.float(), g.float()
+        tc = K.bwd_design(q) == "tensor_core"
+        tol = TC_TOL if tc else BWD_TOL[dtype]
+        with torch.no_grad():
+            out, m, L = K.criss_cross_attention_cuda(q, k, v)
+            delta = (g32 * out.float()).sum(dim=-1)
+            before = dict(K.LAUNCHES)
+            col = K.cca_bwd_col(q, k, v, g, m, L, delta)
+            row = K.cca_bwd_row(q, k, v, g, m, L, delta, *col)
+            torch.cuda.synchronize()
+            moved = {n: K.LAUNCHES[n] - before[n] for n in K.LAUNCHES}
+            if moved != {**{n: 0 for n in K.LAUNCHES}, "cca_bwd_col": 1, "cca_bwd_row": 1,
+                         "cca_bwd_col_tc": int(tc), "cca_bwd_row_tc": int(tc)}:
+                raise RuntimeError(f"K3/K4 at {shape} {dtype} launched {moved}")
+            ins = (q, k, v, g) if tc else (q32, k32, v32, g32)
+            col_p = K.cca_bwd_col_plain(*ins, m, L, delta)
+            row_p = K.cca_bwd_row_plain(*ins, m, L, delta, *col)
+        errs = {}
+        for kern, got_t, want_t in (("K3", col, col_p), ("K4", row, row_p)):
+            for name, got, want in zip(("dq", "dk", "dv"), got_t, want_t):
+                errs[f"{kern}.{name}"] = _rel_check(f"{kern} {name} at {shape} {dtype}",
+                                                    got, want, tol)
+        if shape[1] == 1 and any(c.abs().max().item() != 0.0 for c in col):
+            raise AssertionError(f"K3 at {shape} {dtype}: H = 1 column grads are not all 0")
+        # the Function (K1 K2 K3 K4) vs torch.autograd of the plain op in f32
+        leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+        grads = torch.autograd.grad(K.criss_cross_attention_cuda(*leaves)[0], leaves, g)
+        leaves32 = [t.detach().clone().requires_grad_(True) for t in (q32, k32, v32)]
+        grads_p = torch.autograd.grad(plain.criss_cross_attention(*leaves32), leaves32, g32)
+        for name, got, want in zip(("dq", "dk", "dv"), grads, grads_p):
+            errs[f"fn.{name}"] = _rel_check(f"Function {name} at {shape} {dtype}",
+                                            got, want, BWD_TOL[dtype])
+        if shape == SLIDING and dtype == torch.bfloat16:
+            for kern, key in (("K3", "cca_bwd_col"), ("K4", "cca_bwd_row")):
+                report[key] = {"max_abs_err": max(e for n, e in errs.items()
+                                                  if n.startswith(kern))}
+        log(f"[bwd] {str(dtype)[6:]} {shape} {'tensor cores' if tc else 'CUDA cores'}: ok "
+            f"(K3/K4 tol {tol:g} x scale, Function {BWD_TOL[dtype]:g}) "
+            + " ".join(f"{n}={e:.2e}" for n, e in errs.items()))
+        del q, k, v, g, out, m, L, delta, col, row, col_p, row_p, leaves, grads, grads_p
 
-    # times at the training shape, bf16; the bounds count the column path's
-    # grads in the value dtype, as the TPU function writes them
+    # times at the training shape, bf16, of the tensor-core design, the
+    # CUDA-core pair forced at the same shape (the earlier design) and the
+    # plain version; the bounds count the column path's grads in the value
+    # dtype, as both the TPU function and the tensor-core design write them
     bf16 = torch.bfloat16
     q, k, v = _inputs(SLIDING, bf16, seed=1)
     g = _inputs(SLIDING, bf16, seed=2)[2]
@@ -509,10 +536,14 @@ def phase_bwd_kernels() -> dict:
         report["cca_bwd_row"].update(_bound((*stats, *_in_value_dtype(col, bf16)), row,
                                             _cca_flops(SLIDING, False, "row"), bf16))
         del row
-        report["cca_bwd_col"]["ms"] = _time_ms(K.cca_bwd_col, *stats)
-        report["cca_bwd_col"]["plain_ms"] = _time_ms(K.cca_bwd_col_plain, *stats)
-        report["cca_bwd_row"]["ms"] = _time_ms(K.cca_bwd_row, *stats, *col)
-        report["cca_bwd_row"]["plain_ms"] = _time_ms(K.cca_bwd_row_plain, *stats, *col)
+        for name, extra in (("cca_bwd_col", ()), ("cca_bwd_row", col)):
+            fn, fn_plain = getattr(K, name), getattr(K, f"{name}_plain")
+            r = report[name]
+            r["ms"] = _time_ms(fn, *stats, *extra)
+            r["earlier_ms"] = _time_ms(lambda *a: fn(*a, design="cuda_core"), *stats, *extra)
+            r["plain_ms"] = _time_ms(fn_plain, *stats, *extra)
+            r.update(design="tensor cores (mma.sync m16n8k16 bf16), one block per line",
+                     share=r["bound_ms"] / r["ms"], tflops=r["bound_flops"] / r["ms"] / 1e9)
     leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
 
     def fwd_bwd(fn):
@@ -524,10 +555,12 @@ def phase_bwd_kernels() -> dict:
     sdpa = _sdpa_yardstick(q, k, v, g)  # forward + backward: the yardstick of K3 + K4
     _log_sdpa("bwd", SLIDING, sdpa)
     for name in ("cca_bwd_col", "cca_bwd_row"):
-        report[name]["library_ms"] = sdpa[0]
-        log(f"[bwd] {name} at {SLIDING} bf16: kernel {report[name]['ms']:.4f} ms, "
-            f"plain {report[name]['plain_ms']:.4f} ms (median of {TIMING_REPS}), bound "
-            f"{report[name]['bound_ms']:.4f} ms by {report[name]['bound_by']}")
+        r = report[name]
+        r["library_ms"] = sdpa[0]
+        log(f"[bwd] {name} at {SLIDING} bf16: {r['design']} {r['ms']:.4f} ms ({r['share']:.1%} "
+            f"of the bound {r['bound_ms']:.4f} ms by {r['bound_by']}, {r['tflops']:.1f} TFLOP/s); "
+            f"earlier design (CUDA cores, two passes, f32 scratch) {r['earlier_ms']:.4f} ms; "
+            f"plain {r['plain_ms']:.4f} ms (median of {TIMING_REPS})")
     log(f"[bwd] CCA forward+backward at {SLIDING} bf16: kernels {op_ms:.4f} ms, plain "
         f"criss_cross_attention + autograd {plain_op_ms:.4f} ms (median of {TIMING_REPS})")
     return report
@@ -899,15 +932,16 @@ def _counts() -> dict:
 def _want(hw, fwd: int, bwd: int = 0, loss: int = 0) -> dict:
     """The launch counts of ``fwd`` forward and ``bwd`` backward CCA calls on
     the OS-8 features of an ``hw`` input (one launch of each of K1–K4 per
-    call, or one of K7a/K7b per path and call on the line route) and
-    ``loss`` calls of each of K5/K6."""
+    call, K3/K4 on the tensor-core design, or one of K7a/K7b per path and
+    call on the line route) and ``loss`` calls of each of K5/K6."""
     from ccnet_tpu_torch.ops import cc_attention_cuda as K
 
     want = {n: 0 for n in _counts()}
     if K.uses_line_route(*((n - 1) // 8 + 1 for n in hw)):
         want.update(cca_line_fwd=2 * fwd, cca_line_bwd=2 * bwd)
-    else:
-        want.update(cca_fwd_col=fwd, cca_fwd_row=fwd, cca_bwd_col=bwd, cca_bwd_row=bwd)
+    else:  # the models here are bf16: every K3/K4 launch takes the tensor cores
+        want.update(cca_fwd_col=fwd, cca_fwd_row=fwd, cca_bwd_col=bwd, cca_bwd_row=bwd,
+                    cca_bwd_col_tc=bwd, cca_bwd_row_tc=bwd)
     want.update(upsampled_nll_fwd=loss, upsampled_nll_bwd=loss)
     return want
 
@@ -921,9 +955,10 @@ def _train_batch(seed: int, batch: int, hw):
 
 
 def _top_kernels(fn, top: int = 6) -> str:
-    """One ``fn()`` under ``torch.profiler``: its device kernel time, and the
+    """One ``fn()`` under ``torch.profiler``: its device kernel time, the
     ``top`` kernels by summed device time (read from the exported chrome
-    trace, whose kernel events carry device time alone)."""
+    trace, whose kernel events carry device time alone), and the summed
+    time and count of each hand-written attention kernel (``cca_*``)."""
     from torch.profiler import ProfilerActivity, profile
 
     with tempfile.TemporaryDirectory() as d:
@@ -939,8 +974,17 @@ def _top_kernels(fn, top: int = 6) -> str:
         by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"] / 1e3
     total = sum(by_name.values())
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
-    return f"kernels {total:.1f} ms; top: " + "; ".join(
-        f"{ms:.1f} ms {name[:90]}" for name, ms in ranked)
+    cca = {}
+    for e in events:
+        if "cca_" in e["name"]:
+            name = e["name"].split("cca_", 1)[1].split("(")[0]
+            ms, n = cca.get(name, (0.0, 0))
+            cca[name] = (ms + e["dur"] / 1e3, n + 1)
+    return (f"kernels {total:.1f} ms; top: "
+            + "; ".join(f"{ms:.1f} ms {name[:90]}" for name, ms in ranked)
+            + "; attention kernels: "
+            + ("; ".join(f"cca_{n} {ms:.3f} ms ({c} launches)" for n, (ms, c) in cca.items())
+               or "none"))
 
 
 def random_pth(name: str, pth: str) -> None:
@@ -1163,8 +1207,9 @@ def phase_main_path(pth: str, mode: str, model_name: str = "ccnet") -> dict:
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
-                        help="also run one kernel-route train step of PSPNet and DeepLabv3 "
-                             "under torch.profiler and print its top kernels by device time")
+                        help="also run one kernel-route train step of CCNet, PSPNet and "
+                             "DeepLabv3 under torch.profiler and print its top kernels by "
+                             "device time")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; needs one H100")
@@ -1179,7 +1224,7 @@ def main(argv=None) -> None:
     with tempfile.TemporaryDirectory() as tmp:
         pth = os.path.join(tmp, "ccnet_r101_random.pth")
         phase_model(pth)
-        phase_train_step(pth, TRAIN_BATCH, (CROP, CROP))
+        phase_train_step(pth, TRAIN_BATCH, (CROP, CROP), profile=args.profile)
         launches, trained = phase_train_main_path(pth, os.path.join(tmp, "snapshots"),
                                                   TRAIN_BATCH, (CROP, CROP), TRAIN_STEPS)
         phase_train_step(pth, FULL_FRAME_BATCH, FULL_FRAME)
@@ -1203,8 +1248,13 @@ def main(argv=None) -> None:
     kernels = [{"name": name, "route": "cuda", "source": f"ccnet_tpu_torch/csrc/{source}",
                 "replaces": replaces, "launches": launches[name],
                 **{key: report[name][key] for key in ("max_abs_err", "ms", "plain_ms",
-                                                      "bound_ms", "bound_by", "library_ms")}}
+                                                      "bound_ms", "bound_by", "library_ms")},
+                **{key: report[name][key] for key in ("design", "earlier_ms", "share", "tflops")
+                   if key in report[name]}}
                for name, source, replaces in KERNELS]
+    for k in kernels:  # K3/K4: how many of the path's launches took the tensor cores
+        if f"{k['name']}_tc" in launches:
+            k["launches_tensor_core"] = launches[f"{k['name']}_tc"]
     log("[summary] kernel: ms / bound ms (share of bound) / plain ms / library ms")
     for k in kernels:
         lib = "none" if k["library_ms"] is None else f"{k['library_ms']:.4f}"

@@ -6,7 +6,9 @@
   single-device path; ``partitioned`` stays off as in
   ``tests/test_pallas_cca.py``), out and the joint (m, L) residuals;
 * the backward: the plain versions of K3/K4 chained vs ``_bwd_natural`` in
-  interpret mode on the same (q, k, v, g, m, L, delta), and the grads of
+  interpret mode on the same (q, k, v, g, m, L, delta), in f32 at the
+  'highest' precision and in bf16 at the default one (p and de rounded to
+  bf16 as the TPU kernels' MXU operands), and the grads of
   ``CrissCrossAttentionFn`` (CPU route) vs ``jax.grad`` of the Pallas op;
 * the CUDA kernels themselves are held against the plain versions on the
   card by ``tests/test_torch_kernels_gpu.py``.
@@ -121,7 +123,7 @@ def test_wrapper_refuses_grad_and_bad_inputs():
         K.cca_bwd_col(tq.detach(), tk, tv, tv[..., :4], stats, stats + 1, stats)
     with pytest.raises(ValueError):
         K.cca_bwd_col(tq.detach(), tk, tv, tv.double(), stats, stats + 1, stats)
-    with pytest.raises(ValueError):  # K4's column grads are f32
+    with pytest.raises(ValueError):  # K4's column grads are in the input dtype
         K.cca_bwd_row(tq.detach(), tk, tv, tv, stats, stats + 1, stats,
                       tq.detach().double(), tk, tv)
 
@@ -155,6 +157,72 @@ def test_plain_backward_matches_pallas_bwd_natural(shape):
                                    err_msg=name)
     if shape[1] == 1:  # H=1: the column path is all self slot, every column grad is 0
         assert all(float(c.abs().max()) == 0.0 for c in col)
+
+
+def _bf16_bwd_inputs(shape, seed):
+    """bf16 (q, k, v, g) as jax and torch arrays, with the joint stats of
+    the TPU forward under the default precision and ``delta = Σ out·g``."""
+    jq, jk, jv, jg = (jnp.asarray(a).astype(jnp.bfloat16) for a in _bwd_case(shape, seed))
+    out, m, L = _fwd_impl_natural(jq, jk, jv, True, "default")
+    delta = jnp.sum(jg.astype(jnp.float32) * out.astype(jnp.float32), axis=-1)
+    jx = (jq, jk, jv, jg, m, L, delta)
+    tt = [torch.from_numpy(np.array(a.astype(jnp.float32))).to(torch.bfloat16)
+          for a in jx[:4]] + [torch.from_numpy(np.array(a)) for a in jx[4:]]
+    return jx, tt
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_bf16_plain_backward_matches_pallas_default_precision(shape):
+    """The wrappers' bf16 CPU route of K3 then K4 (their plain versions,
+    rounding p and de to bf16 before the products that consume them) vs
+    the TPU kernels K3+K4 in interpret mode at the default precision, on
+    the same bf16 (q, k, v, g) and stats. Both round p, de, the column
+    grads and the final grads at the same places and sum in f32, so they
+    agree to one bf16 step (2^-8) of the grads' scale: a 97-term f32 sum
+    taken in another order can flip one rounding (measured: 7.2e-4 x
+    scale at most). The f32 arithmetic without those roundings misses this
+    bound at two of the shapes (4.6e-3 x scale)."""
+    jx, t = _bf16_bwd_inputs(shape, 7)
+    want = _bwd_natural(*jx, True, "default")
+    before = dict(K.LAUNCHES)
+    col = K.cca_bwd_col(*t)
+    got = K.cca_bwd_row(*t, *col)
+    assert K.LAUNCHES == before  # the CPU route launches nothing
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == torch.bfloat16
+        a, b = f32(a), f32(b)
+        assert np.abs(a - b).max() <= 2.0 ** -8 * max(1.0, np.abs(b).max()), name
+    assert all(c.dtype == torch.bfloat16 for c in col)  # as _bwd_natural writes them
+
+
+def test_bf16_column_grads_vanish_at_h1():
+    """H = 1: the column path is all self slot, so p = 0 and every bf16
+    column grad of K3's CPU route is exactly 0, as in the TPU kernel."""
+    _, t = _bf16_bwd_inputs((1, 1, 7, 4, 8), 8)
+    col = K.cca_bwd_col(*t)
+    assert all(c.dtype == torch.bfloat16 and float(c.float().abs().max()) == 0.0 for c in col)
+    assert all(float(r.float().abs().max()) > 0.0 for r in K.cca_bwd_row(*t, *col))
+
+
+def test_bwd_design_routes_by_dtype_and_line_length():
+    """K3/K4 take the tensor-core design for bf16 lines of at most
+    LONG_LINE (every call the Function makes there), the CUDA-core pair for
+    f32 and longer lines; a forced design is checked on every route."""
+    z = lambda *s, dt=torch.bfloat16: torch.zeros(*s, dtype=dt)  # noqa: E731
+    assert K.bwd_design(z(8, 97, 97, 64)) == "tensor_core"
+    assert K.bwd_design(z(1, 128, 1, 4)) == "tensor_core"
+    assert K.bwd_design(z(8, 97, 97, 64, dt=torch.float32)) == "cuda_core"
+    assert K.bwd_design(z(1, 129, 257, 64)) == "cuda_core"
+    assert not K.uses_line_route(128, 128) and K.uses_line_route(129, 1)
+    t = [z(1, 5, 6, 4, dt=torch.float32), z(1, 5, 6, 4, dt=torch.float32),
+         z(1, 5, 6, 8, dt=torch.float32), z(1, 5, 6, 8, dt=torch.float32),
+         z(1, 5, 6, dt=torch.float32), z(1, 5, 6, dt=torch.float32) + 1,
+         z(1, 5, 6, dt=torch.float32)]
+    assert all(c.dtype == torch.float32 for c in K.cca_bwd_col(*t, design="cuda_core"))
+    with pytest.raises(ValueError):  # f32 has no tensor-core design
+        K.cca_bwd_col(*t, design="tensor_core")
+    with pytest.raises(ValueError):
+        K.cca_bwd_row(*t, *t[:3], design="wgmma")
 
 
 BF16_GRAD_SHAPES = [(1, 5, 6, 4, 8), (2, 9, 8, 8, 16), (1, 1, 7, 4, 8), (1, 7, 1, 4, 8)]
@@ -196,7 +264,8 @@ def test_cuda_module_imports_without_nvcc():
     code = ("import ccnet_tpu_torch.ops.cc_attention_cuda as K, ccnet_tpu_torch.ops._build as b;"
             "import ccnet_tpu_torch.ops.upsampled_ce as U, ccnet_tpu_torch.train.trainer;"
             "assert b._LIBS == {} and set(K.LAUNCHES) == {'cca_fwd_col', 'cca_fwd_row', "
-            "'cca_bwd_col', 'cca_bwd_row', 'cca_line_fwd', 'cca_line_bwd'} "
+            "'cca_bwd_col', 'cca_bwd_row', 'cca_bwd_col_tc', 'cca_bwd_row_tc', "
+            "'cca_line_fwd', 'cca_line_bwd'} "
             "and not any(K.LAUNCHES.values());"
             "assert U.LAUNCHES == {'upsampled_nll_fwd': 0, 'upsampled_nll_bwd': 0}")
     env = {k: v for k, v in os.environ.items() if k not in ("CUDA_HOME", "CUDA_PATH")}

@@ -10,7 +10,10 @@ Tolerances: f32 (TF32 off) at 1e-4 x scale, where only the summation order
 differs; bf16 against the plain version computed in f32 from the same bf16
 inputs at 2e-2 x scale (the kernels round their output to bf16; 3e-2 for
 the backward, whose final grads are rounded too, and for the line route
-K7a/K7b); the model at 5e-2 x scale with argmax agreement >= 99.5 % (bf16
+K7a/K7b); the tensor-core K3/K4 against the plain version fed the same
+bf16 tensors, which rounds p, de and the grads where the kernels do, at
+1e-2 x scale (f32 sums in another order flip a rounding here and there);
+the model at 5e-2 x scale with argmax agreement >= 99.5 % (bf16
 layers after CCA). The loss kernels: K5 at 1e-5 abs, K6 at 1e-4 x
 max|plain grad|.
 """
@@ -115,8 +118,11 @@ def test_bwd_kernels_match_plain(cuda, shape, dtype):
         before = dict(K.LAUNCHES)
         col = K.cca_bwd_col(q, k, v, g, m, L, delta)
         row = K.cca_bwd_row(q, k, v, g, m, L, delta, *col)
-        assert K.LAUNCHES["cca_bwd_col"] == before["cca_bwd_col"] + 1
-        assert K.LAUNCHES["cca_bwd_row"] == before["cca_bwd_row"] + 1
+        tc = K.bwd_design(q) == "tensor_core"  # f32 and the long shape: CUDA cores
+        assert tc == (dtype == "bfloat16" and max(shape[1:3]) <= K.LONG_LINE)
+        assert K.LAUNCHES == {n: c + {"cca_bwd_col": 1, "cca_bwd_row": 1, "cca_bwd_col_tc": tc,
+                                      "cca_bwd_row_tc": tc}.get(n, 0)
+                              for n, c in before.items()}
         pairs = list(zip(col, K.cca_bwd_col_plain(q32, k32, v32, g32, m, L, delta)))
         pairs += zip(row, K.cca_bwd_row_plain(q32, k32, v32, g32, m, L, delta, *col))
     leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
@@ -125,6 +131,47 @@ def test_bwd_kernels_match_plain(cuda, shape, dtype):
     for got, want in pairs:
         scale = max(1.0, want.abs().max().item())
         assert (got.float() - want.float()).abs().max().item() <= tol * scale
+
+
+# the tensor-core K3/K4 (B, H, W, Cq, Cv): the sliding tile batch, the
+# longest line (128) on both paths, and edge lines N in {1, 7, 16, 17} with
+# Cq in {4, 8, 12, 64} and Cv in {8, 16, 21, 512} (Cq 4 and 12, Cv 21: rows
+# that take element copies, not 16-byte ones; Cv 21: odd, stored singly)
+TC_SHAPES = [(8, 97, 97, 64, 512), (1, 128, 128, 64, 512), (2, 1, 7, 4, 8), (2, 7, 1, 8, 16),
+             (2, 16, 17, 8, 16), (1, 17, 16, 4, 512), (2, 128, 7, 8, 8), (1, 9, 128, 64, 16),
+             (1, 5, 6, 12, 21)]
+
+
+@pytest.mark.parametrize("shape", TC_SHAPES)
+def test_tensor_core_bwd_matches_rounding_plain(cuda, shape):
+    """The tensor-core K3/K4 vs their plain versions on the same bf16
+    tensors (p and de rounded to bf16, as the kernels and the TPU kernels
+    at the default precision round them); each launch counts as the
+    tensor-core design and allocates its three outputs and nothing else."""
+    q, k, v = (torch.from_numpy(a).to(cuda, torch.bfloat16) for a in case(11, *shape))
+    g = torch.from_numpy(case(12, *shape)[2]).to(cuda, torch.bfloat16)
+    assert K.bwd_design(q) == "tensor_core"
+    with torch.no_grad():
+        out, m, L = K.criss_cross_attention_cuda(q, k, v)
+        delta = (g.float() * out.float()).sum(dim=-1)
+        before = dict(K.LAUNCHES)
+        grads = []
+        for fn, extra in ((K.cca_bwd_col, ()), (K.cca_bwd_row, None)):
+            allocs = torch.cuda.memory_stats()["allocation.all.allocated"]
+            grads.append(fn(q, k, v, g, m, L, delta, *(grads[0] if extra is None else extra)))
+            # three outputs and no scratch (the CUDA-core pair adds P and DE)
+            assert torch.cuda.memory_stats()["allocation.all.allocated"] - allocs == 3
+        col, row = grads
+        assert K.LAUNCHES == {n: c + (n.startswith(("cca_bwd_col", "cca_bwd_row")))
+                              for n, c in before.items()}
+        want_col = K.cca_bwd_col_plain(q, k, v, g, m, L, delta)
+        want_row = K.cca_bwd_row_plain(q, k, v, g, m, L, delta, *col)
+    if shape[1] == 1:  # the column path is all self slot
+        assert all(float(c.float().abs().max()) == 0.0 for c in col)
+    for got, want in (*zip(col, want_col), *zip(row, want_row)):
+        assert got.dtype == want.dtype == torch.bfloat16 and got.shape == want.shape
+        scale = max(1.0, want.float().abs().max().item())
+        assert (got.float() - want.float()).abs().max().item() <= 1e-2 * scale
 
 
 # the line route's shapes (B, H, W, Cq, Cv): the whole image at scales 1.0
