@@ -1,6 +1,7 @@
 // Device helpers shared by the criss-cross attention kernels (cca_fwd.cu,
-// cca_bwd.cu, cca_lines.cu). Each source is its own library; the helpers
-// have internal linkage in each.
+// cca_bwd.cu, cca_lines.cu; the tensor-core line helpers of the first two
+// are in cca_tc.cuh). Each source is its own library; the helpers have
+// internal linkage in each.
 
 #pragma once
 
@@ -8,6 +9,9 @@
 #include <cuda_runtime.h>
 
 namespace {
+
+constexpr int MAX_CQ = 128;     // q/k channels the kernels take (MAX_CQ of the wrapper)
+constexpr float MASK = -1e9f;  // the column self slot: NEG_INF of ccnet_tpu/ops/cc_attention.py
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }

@@ -64,8 +64,6 @@ namespace {
 
 constexpr int THREADS = 256;
 constexpr int NWARPS = THREADS / 32;
-constexpr int MAX_CQ = 128;
-constexpr float MASK = -1e9f;  // NEG_INF of ccnet_tpu/ops/cc_attention.py
 
 // K7a tiling
 constexpr int TQ = 16;                // queries per block

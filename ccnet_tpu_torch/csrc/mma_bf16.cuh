@@ -1,4 +1,4 @@
-// bf16 tensor-core helpers shared by probes.cu and cca_bwd.cu: mma.sync
+// bf16 tensor-core helpers shared by probes.cu, cca_fwd.cu and cca_bwd.cu: mma.sync
 // m16n8k16 with f32 accumulators, the ldmatrix loads that build its
 // fragments from shared memory, and cp.async copies into shared memory.
 //

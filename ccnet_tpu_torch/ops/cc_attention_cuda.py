@@ -7,17 +7,23 @@ Counterpart of :mod:`ccnet_tpu.ops.cc_attention_pallas` (``_fwd_impl``,
 beside it:
 
 * K1 :func:`cca_fwd_col` replaces ``_fwd_col_kernel``: the column path with
-  the self slot at −1e9, giving the unnormalised aggregate ``o_col`` (f32)
-  and its stats ``m_col, l_col``; plain version :func:`cca_fwd_col_plain`.
+  the self slot at −1e9, giving the unnormalised aggregate ``o_col`` in v's
+  dtype (as the TPU function writes it) and its f32 stats ``m_col, l_col``;
+  plain version :func:`cca_fwd_col_plain`.
 * K2 :func:`cca_fwd_row` replaces ``_fwd_row_kernel``: the row path fused
   with the joint-softmax combine, giving ``out`` in v's dtype and the joint
   ``(m, L)`` residuals; plain version :func:`cca_fwd_row_plain`.
+  K1 and K2 each have two designs (:func:`kernel_design`): bf16 lines of at
+  most :data:`LONG_LINE` go to the tensor-core kernel (one block per line,
+  ``p`` rounded to bf16 in registers between its two products, as the TPU
+  kernels round it at the default precision), f32 and longer bf16 lines to
+  the CUDA-core kernel (f32 arithmetic, online softmax over key tiles).
 * K3 :func:`cca_bwd_col` replaces ``_bwd_col_kernel``: the column path's
   dq, dk, dv in the input dtype, recomputed from ``(q, k, m, L)`` and
   ``delta``; plain version :func:`cca_bwd_col_plain`.
 * K4 :func:`cca_bwd_row` replaces ``_bwd_row_kernel``: the row path's grads
   plus K3's, in the input dtype; plain version :func:`cca_bwd_row_plain`.
-  K3 and K4 each have two designs (:func:`bwd_design`): bf16 lines of at
+  K3 and K4 each have the same two designs: bf16 lines of at
   most :data:`LONG_LINE` go to the tensor-core kernel (one block per line,
   no scratch), f32 and longer bf16 lines to the CUDA-core pair (f32
   arithmetic, p and de through f32 scratch).
@@ -62,10 +68,12 @@ import torch
 from ccnet_tpu_torch.ops.cc_attention import NEG_INF
 
 # launches of each kernel made by this process; callers may reset them to 0.
-# ``cca_bwd_col_tc`` / ``cca_bwd_row_tc`` count the K3/K4 launches that took
-# the tensor-core design (each also counts under ``cca_bwd_col`` / ``_row``).
-LAUNCHES = {"cca_fwd_col": 0, "cca_fwd_row": 0, "cca_bwd_col": 0, "cca_bwd_row": 0,
-            "cca_bwd_col_tc": 0, "cca_bwd_row_tc": 0, "cca_line_fwd": 0, "cca_line_bwd": 0}
+# ``cca_fwd_col_tc`` / ``cca_fwd_row_tc`` and ``cca_bwd_col_tc`` /
+# ``cca_bwd_row_tc`` count the K1/K2 and K3/K4 launches that took the
+# tensor-core design (each also counts under the kernel's own name).
+LAUNCHES = {"cca_fwd_col": 0, "cca_fwd_row": 0, "cca_fwd_col_tc": 0, "cca_fwd_row_tc": 0,
+            "cca_bwd_col": 0, "cca_bwd_row": 0, "cca_bwd_col_tc": 0, "cca_bwd_row_tc": 0,
+            "cca_line_fwd": 0, "cca_line_bwd": 0}
 
 # A call takes the line route (K7a/K7b) when its longer axis exceeds this.
 # It mirrors where ``_fwd_impl`` / ``_bwd_both_paths`` leave K1–K4 at the
@@ -91,6 +99,10 @@ def _lib():
         lib.cca_fwd_row.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                     _I, _I, _I, _I, _I, _I, _P]
         lib.cca_fwd_row.restype = ctypes.c_int
+        lib.cca_fwd_col_tc.argtypes = [_P] * 6 + [_I] * 5 + [_P]
+        lib.cca_fwd_col_tc.restype = ctypes.c_int
+        lib.cca_fwd_row_tc.argtypes = [_P] * 9 + [_I] * 5 + [_P]
+        lib.cca_fwd_row_tc.restype = ctypes.c_int
         lib._ccnet_bound = True
     return lib
 
@@ -187,16 +199,21 @@ def _to_col(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(1, 2)
 
 
-def cca_line_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, masked: bool):
+def cca_line_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, masked: bool,
+                       round_to=None):
     """One path over ``(B, M, N, C)`` lines in plain torch: ``(o f32, m, l)``
     with ``e = q·kᵀ`` along N (the diagonal at −1e9 when ``masked``),
-    ``m = max e``, ``l = Σ exp(e − m)``, unnormalised ``o = exp(e − m)·v``."""
+    ``m = max e``, ``l = Σ exp(e − m)``, unnormalised ``o = exp(e − m)·v``.
+    ``round_to`` (a dtype) rounds ``p = exp(e − m)`` to it before ``p·v``,
+    as the TPU kernels feed their bf16 MXU operands under the default
+    precision; ``m``, ``l`` and the sums stay f32."""
     e = torch.einsum("bmic,bmjc->bmij", q.float(), k.float())
     if masked:
         e = e.masked_fill(torch.eye(q.shape[2], dtype=torch.bool, device=q.device), NEG_INF)
     m = e.amax(dim=-1)
     p = torch.exp(e - m[..., None])
-    return torch.einsum("bmij,bmjc->bmic", p, v.float()), m, p.sum(dim=-1)
+    p_v = p if round_to is None else p.to(round_to).float()
+    return torch.einsum("bmij,bmjc->bmic", p_v, v.float()), m, p.sum(dim=-1)
 
 
 def cca_line_bwd_plain(q, k, v, g, m, L, delta, masked: bool, round_to=None):
@@ -228,22 +245,26 @@ def _combine(o_c, m_c, l_c, o_r, m_r, l_r):
     return (o_c * a_c[..., None] + o_r * a_r[..., None]) / L[..., None], m, L
 
 
+def _mxu_round(q: torch.Tensor):
+    """What the plain versions round ``p`` (and the backward's ``de``) to
+    before the products that consume them: bf16 for bf16 inputs (the JAX
+    package's default precision), nothing for f32 (its "highest")."""
+    return torch.bfloat16 if q.dtype == torch.bfloat16 else None
+
+
 def cca_fwd_col_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
-    """Column path in plain torch: ``(o_col f32, m_col, l_col)``, NHWC."""
-    return tuple(map(_to_col, cca_line_fwd_plain(*map(_to_col, (q, k, v)), masked=True)))
+    """Column path in plain torch: ``(o_col, m_col, l_col)``, NHWC, ``o_col``
+    in v's dtype and the stats f32, as ``_fwd_col_kernel`` writes them."""
+    o, m, l = cca_line_fwd_plain(*map(_to_col, (q, k, v)), masked=True, round_to=_mxu_round(q))
+    return _to_col(o).to(v.dtype), _to_col(m), _to_col(l)
 
 
 def cca_fwd_row_plain(q, k, v, o_col, m_col, l_col):
-    """Row path + joint-softmax combine in plain torch: ``(out, m, L)``."""
-    out, m, L = _combine(o_col, m_col, l_col, *cca_line_fwd_plain(q, k, v, masked=False))
+    """Row path + joint-softmax combine in plain torch: ``(out, m, L)``, the
+    combine in f32 from ``o_col`` (in v's dtype), ``out`` in v's dtype."""
+    row = cca_line_fwd_plain(q, k, v, masked=False, round_to=_mxu_round(q))
+    out, m, L = _combine(o_col.float(), m_col, l_col, *row)
     return out.to(v.dtype), m, L
-
-
-def _mxu_round(q: torch.Tensor):
-    """What the plain backward rounds ``p`` and ``de`` to: bf16 for bf16
-    inputs (the JAX package's default precision), nothing for f32 (its
-    "highest")."""
-    return torch.bfloat16 if q.dtype == torch.bfloat16 else None
 
 
 def cca_bwd_col_plain(q, k, v, g, m, L, delta):
@@ -265,81 +286,89 @@ def cca_bwd_row_plain(q, k, v, g, m, L, delta, dq_c, dk_c, dv_c):
 # ------------------------------------------------------------------ kernels
 
 
-def cca_fwd_col(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
-    """K1: ``(o_col (B,H,W,Cv) f32, m_col (B,H,W) f32, l_col (B,H,W) f32)``."""
-    if _check(q, k, v) == "cpu":
-        return cca_fwd_col_plain(q, k, v)
-    B, H, W, Cq = q.shape
-    Cv = v.shape[-1]
-    lib = _lib()
-    with torch.cuda.device(q.device):
-        f32 = dict(device=q.device, dtype=torch.float32)
-        o_col = torch.empty((B, H, W, Cv), **f32)
-        m_col = torch.empty((B, H, W), **f32)
-        l_col = torch.empty((B, H, W), **f32)
-        rc = lib.cca_fwd_col(
-            _P(q.data_ptr()), _P(k.data_ptr()), _P(v.data_ptr()), _P(o_col.data_ptr()),
-            _P(m_col.data_ptr()), _P(l_col.data_ptr()), B, H, W, Cq, Cv,
-            int(q.dtype == torch.bfloat16), _P(torch.cuda.current_stream().cuda_stream))
-        if rc != 0:
-            raise RuntimeError(f"cca_fwd_col launch failed: CUDA error {rc}")
-        LAUNCHES["cca_fwd_col"] += 1
-    return o_col, m_col, l_col
+DESIGNS = ("tensor_core", "cuda_core")
 
 
-def cca_fwd_row(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o_col: torch.Tensor,
-                m_col: torch.Tensor, l_col: torch.Tensor):
-    """K2: ``(out (B,H,W,Cv) in v's dtype, m (B,H,W) f32, L (B,H,W) f32)``."""
-    route = _check(q, k, v)
-    B, H, W, Cq = q.shape
-    Cv = v.shape[-1]
-    _check_like("o_col", o_col, (B, H, W, Cv), q.device)
-    _check_like("m_col", m_col, (B, H, W), q.device)
-    _check_like("l_col", l_col, (B, H, W), q.device)
-    if route == "cpu":
-        return cca_fwd_row_plain(q, k, v, o_col, m_col, l_col)
-    lib = _lib()
-    with torch.cuda.device(q.device):
-        f32 = dict(device=q.device, dtype=torch.float32)
-        out = torch.empty_like(v)
-        m = torch.empty((B, H, W), **f32)
-        L = torch.empty((B, H, W), **f32)
-        rc = lib.cca_fwd_row(
-            _P(q.data_ptr()), _P(k.data_ptr()), _P(v.data_ptr()), _P(o_col.data_ptr()),
-            _P(m_col.data_ptr()), _P(l_col.data_ptr()), _P(out.data_ptr()),
-            _P(m.data_ptr()), _P(L.data_ptr()), B, H, W, Cq, Cv,
-            int(q.dtype == torch.bfloat16), _P(torch.cuda.current_stream().cuda_stream))
-        if rc != 0:
-            raise RuntimeError(f"cca_fwd_row launch failed: CUDA error {rc}")
-        LAUNCHES["cca_fwd_row"] += 1
-    return out, m, L
-
-
-BWD_DESIGNS = ("tensor_core", "cuda_core")
-
-
-def bwd_design(q: torch.Tensor) -> str:
-    """The design K3/K4 take for ``q``: ``"tensor_core"`` (one block per
-    line, bf16 products on the tensor cores, no scratch) for bf16 lines of
-    at most :data:`LONG_LINE` on both paths, which is every call
-    :class:`CrissCrossAttentionFn` sends to K3/K4; ``"cuda_core"`` (f32
-    arithmetic, p and de through f32 scratch) for f32 and for longer lines,
-    which only a forced call makes."""
+def kernel_design(q: torch.Tensor) -> str:
+    """The design K1–K4 take for ``q``: ``"tensor_core"`` (one block per
+    line, the products on the tensor cores in bf16, no scratch) for bf16
+    lines of at most :data:`LONG_LINE` on both paths, which is every call
+    :class:`CrissCrossAttentionFn` sends to K1–K4; ``"cuda_core"`` (f32
+    arithmetic: K1/K2 an online softmax over key tiles, K3/K4 p and de
+    through f32 scratch) for f32 and for longer lines, which only a forced
+    call makes."""
     if q.dtype == torch.bfloat16 and not uses_line_route(q.shape[1], q.shape[2]):
         return "tensor_core"
     return "cuda_core"
 
 
 def _resolve_design(name: str, q: torch.Tensor, design) -> str:
-    """``design`` checked against ``q`` (``None``: :func:`bwd_design`)."""
+    """``design`` checked against ``q`` (``None``: :func:`kernel_design`)."""
     if design is None:
-        return bwd_design(q)
-    if design not in BWD_DESIGNS:
-        raise ValueError(f"{name}: design must be one of {BWD_DESIGNS}; got {design!r}")
-    if design == "tensor_core" and bwd_design(q) != design:
+        return kernel_design(q)
+    if design not in DESIGNS:
+        raise ValueError(f"{name}: design must be one of {DESIGNS}; got {design!r}")
+    if design == "tensor_core" and kernel_design(q) != design:
         raise ValueError(f"{name}: the tensor-core design takes bf16 lines of at most "
                          f"{LONG_LINE}; got {q.dtype} {tuple(q.shape)}")
     return design
+
+
+def _fwd_launch(name, design, q, k, v, col_in, outs):
+    """Launch K1 (``col_in`` empty) or K2 (K1's ``o_col, m_col, l_col``)
+    in ``design``."""
+    B, H, W, Cq = q.shape
+    Cv = v.shape[-1]
+    lib = _lib()
+    stream = _P(torch.cuda.current_stream().cuda_stream)
+    ptrs = [_P(t.data_ptr()) for t in (q, k, v, *col_in, *outs)]
+    if design == "tensor_core":  # at most 106 KB of shared memory (N = Cq = 128)
+        rc = getattr(lib, f"{name}_tc")(*ptrs, B, H, W, Cq, Cv, stream)
+    else:
+        rc = getattr(lib, name)(*ptrs, B, H, W, Cq, Cv, int(q.dtype == torch.bfloat16), stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} ({design}) launch failed: CUDA error {rc}")
+    LAUNCHES[name] += 1
+    if design == "tensor_core":
+        LAUNCHES[f"{name}_tc"] += 1
+
+
+def cca_fwd_col(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, design=None):
+    """K1: ``(o_col (B,H,W,Cv) in v's dtype, m_col (B,H,W) f32, l_col
+    (B,H,W) f32)``. ``design`` forces one of :data:`DESIGNS` (to time one
+    against the other); ``None`` takes :func:`kernel_design`."""
+    route = _check(q, k, v)
+    design = _resolve_design("cca_fwd_col", q, design)
+    if route == "cpu":
+        return cca_fwd_col_plain(q, k, v)
+    B, H, W, _ = q.shape
+    with torch.cuda.device(q.device):
+        f32 = dict(device=q.device, dtype=torch.float32)
+        outs = (torch.empty_like(v), torch.empty((B, H, W), **f32),
+                torch.empty((B, H, W), **f32))
+        _fwd_launch("cca_fwd_col", design, q, k, v, (), outs)
+    return outs
+
+
+def cca_fwd_row(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o_col: torch.Tensor,
+                m_col: torch.Tensor, l_col: torch.Tensor, design=None):
+    """K2: ``(out (B,H,W,Cv) in v's dtype, m (B,H,W) f32, L (B,H,W) f32)``
+    from K1's outputs (``o_col`` in v's dtype). ``design`` as for
+    :func:`cca_fwd_col`."""
+    route = _check(q, k, v)
+    B, H, W, _ = q.shape
+    _check_like("o_col", o_col, v.shape, q.device, v.dtype)
+    _check_like("m_col", m_col, (B, H, W), q.device)
+    _check_like("l_col", l_col, (B, H, W), q.device)
+    design = _resolve_design("cca_fwd_row", q, design)
+    if route == "cpu":
+        return cca_fwd_row_plain(q, k, v, o_col, m_col, l_col)
+    with torch.cuda.device(q.device):
+        f32 = dict(device=q.device, dtype=torch.float32)
+        outs = (torch.empty_like(v), torch.empty((B, H, W), **f32),
+                torch.empty((B, H, W), **f32))
+        _fwd_launch("cca_fwd_row", design, q, k, v, (o_col, m_col, l_col), outs)
+    return outs
 
 
 def _bwd_launch(name, design, q, k, v, g, m, L, delta, extra_in, outs):
@@ -376,8 +405,8 @@ def cca_bwd_col(q, k, v, g, m, L, delta, design=None):
 
     ``g`` is the output grad in v's dtype; ``m``, ``L`` the joint stats of
     the forward; ``delta = Σ_c out·g``, all ``(B, H, W)`` f32. ``design``
-    forces one of :data:`BWD_DESIGNS` on a CUDA tensor (to time one against
-    the other); ``None`` takes :func:`bwd_design`."""
+    forces one of :data:`DESIGNS` on a CUDA tensor (to time one against
+    the other); ``None`` takes :func:`kernel_design`."""
     route = _check_bwd(q, k, v, g, m, L, delta)
     design = _resolve_design("cca_bwd_col", q, design)
     if route == "cpu":

@@ -14,7 +14,13 @@ failure raises and exits non-zero:
 3. kernels vs plain: K1 ``cca_fwd_col`` and K2 ``cca_fwd_row`` against their
    plain-torch versions, and the routed op against the joint-softmax
    oracle, at the sliding-tile, whole-image and edge shapes, in f32 (TF32
-   off) and bf16; CUDA-event times of kernel vs plain at the sliding shape;
+   off) and bf16 (bf16 lines of at most 128, plus edge lines: the
+   tensor-core design against the plain versions on the same bf16 tensors;
+   f32 and the long shape: the CUDA-core kernel; the tensor-core design's
+   bf16 outputs must also be bit-equal to the rounding plain versions' but
+   for a few flipped roundings, which the plain version that does not round
+   p is not); at the sliding shape CUDA-event times of both designs and the
+   plain versions, and the CCA forward against the plain op;
 4. backward kernels vs plain: K3 ``cca_bwd_col`` and K4 ``cca_bwd_row``
    against their plain versions, and the autograd Function's grads against
    torch.autograd of the plain op, at the same shapes and dtypes (bf16
@@ -41,7 +47,8 @@ failure raises and exits non-zero:
    launches each kernel;
 8. full model: CCNet-R101 R=2 bf16 with seeded random weights (``gamma`` =
    0.5, so the attention moves the logits), kernel route vs plain route on
-   one (8, 3, 769, 769) batch; the weights go to a ``.pth``;
+   one (8, 3, 769, 769) batch, and both routes' eval forward timed in turns
+   in this process; the weights go to a ``.pth``;
 9. train step: one OHEM+DSN ``train_step`` from that ``.pth`` with the
    kernels (CCA and loss) and one with the plain versions: loss, CCA grads,
    launch counts, peak memory; at batch 8 of 769² (K1–K6);
@@ -52,7 +59,8 @@ failure raises and exits non-zero:
     the 1024×2048 images (features 129×257: K7a/K7b and K5/K6), 2 steps;
 12. evaluation main path: ``ccnet_tpu_torch.cli.evaluate.main`` on the
     synthetic 1024×2048 set with the trained ``.pth``, sliding 769²
-    windows (K1/K2); then ``--whole 1`` (K7a at 129×257); then multi-scale
+    windows (K1/K2, every launch on the tensor cores); then ``--whole 1``
+    (K7a at 129×257); then multi-scale
     + flip whole image, scales 0.75–1.75, ``--save-preds 1`` (K7a at
     97×193 … 225×449), whose prediction PNGs are decoded with ``zlib``.
     Each run's launch counts must show that it went through its kernels;
@@ -111,14 +119,20 @@ TIMING_REPS = 20
 # bf16 against the plain version in f32 from the same bf16 inputs, where the
 # kernels round the output and the final grads to bf16
 BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
-# the tensor-core K3/K4 against the plain version fed the same bf16 tensors,
-# which rounds p, de and the grads where the kernels do: f32 sums in another
-# order flip one of those roundings here and there (the same plain version
-# and the TPU kernels in interpret mode agree to 7.2e-4 x scale on the CPU)
+# the tensor-core K1–K4 against the plain versions fed the same bf16
+# tensors, which round p (and de), o_col, the output and the grads where the
+# kernels do: f32 sums in another order flip one of those roundings here
+# and there (the same plain versions and the TPU kernels in interpret mode
+# agree to 2^-8 x scale on the CPU)
 TC_TOL = 1e-2
+# ... and their bf16 outputs (K1's o_col, K2's out) bit-equal to the
+# rounding plain versions' but for at most this share of flipped roundings;
+# the plain version that keeps p in f32 differs from them in more
+TC_FLIPS = 1e-2
 # edge lines of the tensor-core design beyond SHAPES (B, H, W, Cq, Cv): the
 # longest line (128) on both paths, N = 16 / 17 with 4 or 8 q/k channels
 TC_EDGE_SHAPES = [(1, 128, 128, 64, 512), (2, 16, 17, 8, 16), (1, 17, 16, 4, 512)]
+EVAL_AB_REPS = 6  # timed eval forwards of each CCA route, in turns
 # B, H, W, Cq, Cv of the line route: whole image at scale 1.0 (and full-frame
 # training), at scale 1.75, and edge shapes (N = 1 on either path)
 LINE_SHAPES = [(1, 129, 257, 64, 512), (1, 225, 449, 64, 512), (2, 9, 441, 8, 16),
@@ -219,6 +233,11 @@ def _err(got, want) -> tuple:
     want = want.float()
     err = (got.float() - want).abs().max().item()
     return err, max(1.0, want.abs().max().item())
+
+
+def _flipped(got, want) -> float:
+    """The share of the elements of ``got`` not bit-equal to ``want``."""
+    return (got != want).float().mean().item()
 
 
 def _rel_check(what: str, got, want, tol: float) -> float:
@@ -386,73 +405,121 @@ def _log_sdpa(tag: str, shape, res: tuple) -> None:
 
 
 def phase_kernels() -> dict:
+    """K1/K2 against their plain versions, and the routed op against the
+    joint-softmax oracle, at every shape in f32 and bf16 (and the edge lines
+    of the tensor-core design in bf16). Where the call takes the
+    tensor-core design (bf16, lines of at most 128) the plain versions get
+    the same bf16 tensors and round where the kernels round; elsewhere (the
+    CUDA-core kernel) they compute in f32. Then, at the sliding shape, times
+    of both designs and the plain versions, and the CCA forward against the
+    plain op."""
     from ccnet_tpu_torch.ops import cc_attention as plain
     from ccnet_tpu_torch.ops import cc_attention_cuda as K
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     report = {}
+    cases = [(torch.float32, s) for s in SHAPES]
+    cases += [(torch.bfloat16, s) for s in SHAPES + TC_EDGE_SHAPES]
     with torch.inference_mode():
-        for dtype in (torch.float32, torch.bfloat16):
-            tol = TOL[dtype]
-            for shape in SHAPES:
-                q, k, v = _inputs(shape, dtype, seed=sum(shape))
-                q32, k32, v32 = q.float(), k.float(), v.float()  # plain in f32
-                before = dict(K.LAUNCHES)
-                col = K.cca_fwd_col(q, k, v)
-                row = K.cca_fwd_row(q, k, v, *col)  # K2 fed K1's own outputs
-                out, m, L = K.criss_cross_attention_cuda(q, k, v)
-                torch.cuda.synchronize()
-                line = K.uses_line_route(shape[1], shape[2])  # the op took K7a, not K1/K2
-                if (K.LAUNCHES["cca_fwd_col"] != before["cca_fwd_col"] + 2 - line
-                        or K.LAUNCHES["cca_fwd_row"] != before["cca_fwd_row"] + 2 - line
-                        or K.LAUNCHES["cca_line_fwd"] != before["cca_line_fwd"] + 2 * line):
-                    raise RuntimeError(f"launch counts did not advance: {before} -> {K.LAUNCHES}")
-                checks = {
-                    "K1": zip(("o_col", "m_col", "l_col"), col, K.cca_fwd_col_plain(q32, k32, v32)),
-                    "K2": zip(("out", "m", "L"), row, K.cca_fwd_row_plain(q32, k32, v32, *col)),
-                    "op": zip(("out", "m", "L"), (out, m, L),
-                              plain.criss_cross_attention_stats(q32, k32, v32)),
-                }
-                errs = {}
-                for kern, pairs in checks.items():
-                    for name, got, want in pairs:
-                        err = _rel_check(f"{kern} {name} at {shape} {dtype}", got, want, tol)
-                        errs[f"{kern}.{name}"] = err
-                        if shape == SLIDING and dtype == torch.bfloat16:
-                            key = "cca_fwd_col" if kern == "K1" else "cca_fwd_row"
-                            if kern != "op":
-                                report.setdefault(key, {"max_abs_err": 0.0})
-                                report[key]["max_abs_err"] = max(report[key]["max_abs_err"], err)
-                log(f"[kernels] {str(dtype)[6:]} {shape}: ok (tol {tol:g} x scale) "
-                    + " ".join(f"{n}={e:.2e}" for n, e in errs.items()))
+        for dtype, shape in cases:
+            q, k, v = _inputs(shape, dtype, seed=sum(shape))
+            q32, k32, v32 = q.float(), k.float(), v.float()
+            tc = K.kernel_design(q) == "tensor_core"
+            tol = TC_TOL if tc else TOL[dtype]
+            before = dict(K.LAUNCHES)
+            col = K.cca_fwd_col(q, k, v)
+            row = K.cca_fwd_row(q, k, v, *col)  # K2 fed K1's own outputs
+            out, m, L = K.criss_cross_attention_cuda(q, k, v)
+            torch.cuda.synchronize()
+            line = K.uses_line_route(shape[1], shape[2])  # the op took K7a, not K1/K2
+            calls = 2 - line
+            moved = {n: K.LAUNCHES[n] - before[n] for n in K.LAUNCHES}
+            if moved != {**{n: 0 for n in K.LAUNCHES}, "cca_fwd_col": calls,
+                         "cca_fwd_row": calls, "cca_fwd_col_tc": calls * tc,
+                         "cca_fwd_row_tc": calls * tc, "cca_line_fwd": 2 * line}:
+                raise RuntimeError(f"K1/K2 at {shape} {dtype} launched {moved}")
+            ins = (q, k, v) if tc else (q32, k32, v32)
+            want_col, want_row = K.cca_fwd_col_plain(*ins), K.cca_fwd_row_plain(*ins, *col)
+            checks = {
+                "K1": zip(("o_col", "m_col", "l_col"), col, want_col),
+                "K2": zip(("out", "m", "L"), row, want_row),
+                "op": zip(("out", "m", "L"), (out, m, L),
+                          plain.criss_cross_attention_stats(q32, k32, v32)),
+            }
+            errs = {}
+            for kern, pairs in checks.items():
+                for name, got, want in pairs:
+                    errs[f"{kern}.{name}"] = _rel_check(f"{kern} {name} at {shape} {dtype}", got,
+                                                        want, TOL[dtype] if kern == "op" else tol)
+            if col[0].dtype != v.dtype:
+                raise AssertionError(f"K1 o_col is {col[0].dtype}, not v's {v.dtype}")
+            flips = ""
+            if tc:  # p rounded where the plain versions round it, not kept in f32
+                unrounded = K.cca_fwd_row_plain(q32, k32, v32, *K.cca_fwd_col_plain(q32, k32, v32))
+                share = {"K1.o_col": _flipped(col[0], want_col[0]),
+                         "K2.out": _flipped(row[0], want_row[0]),
+                         "unrounded.out": _flipped(unrounded[0].to(v.dtype), want_row[0])}
+                flips = " flipped " + " ".join(f"{n}={x:.2e}" for n, x in share.items())
+                if max(share["K1.o_col"], share["K2.out"]) > TC_FLIPS:
+                    raise AssertionError(f"K1/K2 at {shape}: {flips.strip()}, over {TC_FLIPS:g}")
+                if share["unrounded.out"] <= TC_FLIPS:
+                    raise AssertionError(f"at {shape} the unrounded plain version is within "
+                                         f"{TC_FLIPS:g} of the rounding one: {flips.strip()}")
+                del unrounded
+            if shape[1] == 1 and not (torch.all(col[1] == plain.NEG_INF)
+                                      and torch.all(col[2] == 1.0)):
+                raise AssertionError(f"K1 at {shape} {dtype}: H = 1 stats are not (-1e9, 1)")
+            if shape == SLIDING and dtype == torch.bfloat16:
+                for kern, key in (("K1", "cca_fwd_col"), ("K2", "cca_fwd_row")):
+                    report[key] = {"max_abs_err": max(e for n, e in errs.items()
+                                                      if n.startswith(kern))}
+            log(f"[kernels] {str(dtype)[6:]} {shape} {'tensor cores' if tc else 'CUDA cores'}: "
+                f"ok (K1/K2 tol {tol:g} x scale, op {TOL[dtype]:g}) "
+                + " ".join(f"{n}={e:.2e}" for n, e in errs.items()) + flips)
 
-        # times at the sliding shape, bf16: each kernel vs its plain version
-        # and its bound (K1's o_col counted in the value dtype, as the TPU
-        # function writes it); the yardstick of K1 + K2 is one SDPA forward
+        # times at the sliding shape, bf16: the tensor-core design, the
+        # CUDA-core kernel forced at the same shape (the earlier design, held
+        # against the f32 plain versions first) and the plain versions on the
+        # same bf16 tensors; the yardstick of K1 + K2 is one SDPA forward
         bf16 = torch.bfloat16
         q, k, v = _inputs(SLIDING, bf16, seed=1)
+        f32_ins = (q.float(), k.float(), v.float())
         col = K.cca_fwd_col(q, k, v)
         row = K.cca_fwd_row(q, k, v, *col)
-        o_col = [(col[0], bf16), *col[1:]]
-        report["cca_fwd_col"].update(_bound((q, k, v), o_col, _cca_flops(SLIDING, True, "col"),
+        col_cc = K.cca_fwd_col(q, k, v, design="cuda_core")
+        row_cc = K.cca_fwd_row(q, k, v, *col_cc, design="cuda_core")
+        for kern, got_t, want_t in (("K1", col_cc, K.cca_fwd_col_plain(*f32_ins)),
+                                    ("K2", row_cc, K.cca_fwd_row_plain(*f32_ins, *col_cc))):
+            for i, (got, want) in enumerate(zip(got_t, want_t)):
+                _rel_check(f"{kern} CUDA-core design output {i} at {SLIDING}", got, want,
+                           TOL[bf16])
+        del col_cc, row_cc, f32_ins
+        report["cca_fwd_col"].update(_bound((q, k, v), col, _cca_flops(SLIDING, True, "col"),
                                             bf16))
-        report["cca_fwd_row"].update(_bound((q, k, v, *o_col), row,
+        report["cca_fwd_row"].update(_bound((q, k, v, *col), row,
                                             _cca_flops(SLIDING, True, "row"), bf16))
-        report["cca_fwd_col"]["ms"] = _time_ms(K.cca_fwd_col, q, k, v)
-        report["cca_fwd_col"]["plain_ms"] = _time_ms(K.cca_fwd_col_plain, q, k, v)
-        report["cca_fwd_row"]["ms"] = _time_ms(K.cca_fwd_row, q, k, v, *col)
-        report["cca_fwd_row"]["plain_ms"] = _time_ms(K.cca_fwd_row_plain, q, k, v, *col)
+        for name, extra in (("cca_fwd_col", ()), ("cca_fwd_row", col)):
+            fn, fn_plain = getattr(K, name), getattr(K, f"{name}_plain")
+            r = report[name]
+            r["ms"] = _time_ms(fn, q, k, v, *extra)
+            r["earlier_ms"] = _time_ms(lambda *a: fn(*a, design="cuda_core"), q, k, v, *extra)
+            r["plain_ms"] = _time_ms(fn_plain, q, k, v, *extra)
+            r.update(design="tensor cores (mma.sync m16n8k16 bf16), one block per line, p in "
+                            "registers", share=r["bound_ms"] / r["ms"],
+                     tflops=r["bound_flops"] / r["ms"] / 1e9)
         op_ms = _time_ms(K.criss_cross_attention_cuda, q, k, v)
         plain_op_ms = _time_ms(plain.criss_cross_attention, q, k, v)
-        del col, row, o_col
+        del col, row
     sdpa = _sdpa_yardstick(q, k, v)
     _log_sdpa("kernels", SLIDING, sdpa)
     for name in ("cca_fwd_col", "cca_fwd_row"):
-        report[name]["library_ms"] = sdpa[0]
-        log(f"[kernels] {name} at {SLIDING} bf16: kernel {report[name]['ms']:.4f} ms, "
-            f"plain {report[name]['plain_ms']:.4f} ms (median of {TIMING_REPS}), bound "
-            f"{report[name]['bound_ms']:.4f} ms by {report[name]['bound_by']}")
+        r = report[name]
+        r["library_ms"] = sdpa[0]
+        log(f"[kernels] {name} at {SLIDING} bf16: {r['design']} {r['ms']:.4f} ms "
+            f"({r['share']:.1%} of the bound {r['bound_ms']:.4f} ms by {r['bound_by']}, "
+            f"{r['tflops']:.1f} TFLOP/s); earlier design (CUDA cores, online softmax) "
+            f"{r['earlier_ms']:.4f} ms; plain {r['plain_ms']:.4f} ms (median of {TIMING_REPS})")
     log(f"[kernels] CCA forward at {SLIDING} bf16: kernels {op_ms:.4f} ms, plain "
         f"criss_cross_attention {plain_op_ms:.4f} ms (median of {TIMING_REPS})")
     return report
@@ -478,7 +545,7 @@ def phase_bwd_kernels() -> dict:
         q, k, v = _inputs(shape, dtype, seed=sum(shape) + 1)
         g = _inputs(shape, dtype, seed=sum(shape) + 2)[2]
         q32, k32, v32, g32 = q.float(), k.float(), v.float(), g.float()
-        tc = K.bwd_design(q) == "tensor_core"
+        tc = K.kernel_design(q) == "tensor_core"
         tol = TC_TOL if tc else BWD_TOL[dtype]
         with torch.no_grad():
             out, m, L = K.criss_cross_attention_cuda(q, k, v)
@@ -781,7 +848,7 @@ def phase_loss_kernels() -> dict:
 
 # the probes: wrapper -> (the script's shape, the model's shape, input dtype);
 # P1, P2, P3 at the model's widths: one image's columns of q (H, W, 64) and
-# of v (H, W, 512), and a scale over K1's f32 o_col (8·97·97, 512)
+# of v (H, W, 512), and a scale over an f32 tensor of o_col's size (8·97·97, 512)
 PROBES = {
     "mid_batch_dot": ((96, 16, 64), (97, 97, 64), torch.bfloat16),
     "swap_leading": ((96, 16, 128), (97, 97, 512), torch.bfloat16),
@@ -896,6 +963,19 @@ def phase_model(pth: str) -> None:
             raise RuntimeError("impl='kernel' did not launch the kernels")
         model.set_cca_impl("torch")
         main_t = model(x)["main"]
+        # the eval forward through each CCA route, in turns (kernel, plain,
+        # plain, kernel, ...), after one untimed call of each
+        times = {"kernel": [], "torch": []}
+        for rep in range(EVAL_AB_REPS + 1):
+            for impl in ("kernel", "torch") if rep % 2 else ("torch", "kernel"):
+                model.set_cca_impl(impl)
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record()
+                model(x)
+                end.record()
+                end.synchronize()
+                if rep:
+                    times[impl].append(start.elapsed_time(end))
         model.set_cca_impl("auto")
     torch.cuda.synchronize()
     if tuple(main_k.shape) != (8, 19, 97, 97) or not torch.isfinite(main_k).all():
@@ -905,6 +985,11 @@ def phase_model(pth: str) -> None:
     log(f"[model] R101 R=2 bf16 (8,3,769,769), gamma=0.5: kernel vs plain main logits "
         f"max abs err {err:.3e} (scale {scale:.3g}, tol {MODEL_TOL:g} x scale), "
         f"argmax agreement {agree:.6f} (>= {MODEL_ARGMAX})")
+    log(f"[model] R101 R=2 bf16 eval forward (8,3,769,769), the two CCA routes in turns in one "
+        f"process: impl='kernel' median {np.median(times['kernel']):.4f} ms, impl='torch' "
+        f"median {np.median(times['torch']):.4f} ms (CUDA events, {EVAL_AB_REPS} each; "
+        f"kernel {' '.join(f'{t:.4f}' for t in times['kernel'])}; torch "
+        f"{' '.join(f'{t:.4f}' for t in times['torch'])})")
     if not err <= MODEL_TOL * scale or agree < MODEL_ARGMAX:
         raise AssertionError("full-model kernel route disagrees with the plain route")
     del model, main_k, main_t, x
@@ -932,16 +1017,17 @@ def _counts() -> dict:
 def _want(hw, fwd: int, bwd: int = 0, loss: int = 0) -> dict:
     """The launch counts of ``fwd`` forward and ``bwd`` backward CCA calls on
     the OS-8 features of an ``hw`` input (one launch of each of K1–K4 per
-    call, K3/K4 on the tensor-core design, or one of K7a/K7b per path and
-    call on the line route) and ``loss`` calls of each of K5/K6."""
+    call, or one of K7a/K7b per path and
+    call on the line route) and ``loss`` calls of each of K5/K6. K1–K4
+    launches are all on the tensor-core design."""
     from ccnet_tpu_torch.ops import cc_attention_cuda as K
 
     want = {n: 0 for n in _counts()}
     if K.uses_line_route(*((n - 1) // 8 + 1 for n in hw)):
         want.update(cca_line_fwd=2 * fwd, cca_line_bwd=2 * bwd)
-    else:  # the models here are bf16: every K3/K4 launch takes the tensor cores
-        want.update(cca_fwd_col=fwd, cca_fwd_row=fwd, cca_bwd_col=bwd, cca_bwd_row=bwd,
-                    cca_bwd_col_tc=bwd, cca_bwd_row_tc=bwd)
+    else:  # the models here are bf16: every K1–K4 launch takes the tensor cores
+        want.update(cca_fwd_col=fwd, cca_fwd_row=fwd, cca_fwd_col_tc=fwd, cca_fwd_row_tc=fwd,
+                    cca_bwd_col=bwd, cca_bwd_row=bwd, cca_bwd_col_tc=bwd, cca_bwd_row_tc=bwd)
     want.update(upsampled_nll_fwd=loss, upsampled_nll_bwd=loss)
     return want
 
@@ -1230,7 +1316,7 @@ def main(argv=None) -> None:
         phase_train_step(pth, FULL_FRAME_BATCH, FULL_FRAME)
         full_frame, _ = phase_train_main_path(pth, os.path.join(tmp, "snapshots_full"),
                                               FULL_FRAME_BATCH, FULL_FRAME, FULL_FRAME_STEPS)
-        phase_main_path(trained, "sliding")
+        sliding = phase_main_path(trained, "sliding")
         phase_main_path(trained, "whole")
         msflip = phase_main_path(trained, "msflip")
         for name in ("pspnet", "deeplabv3"):  # the heads without attention: K5/K6
@@ -1241,8 +1327,10 @@ def main(argv=None) -> None:
                                                TRAIN_BATCH, (CROP, CROP), HEAD_TRAIN_STEPS, name)
             phase_main_path(trained, "sliding-png", name)
     # each kernel's launches in the main path that runs it: K1–K6 in the 769²
-    # cli.train run, K7a in the MS+flip evaluation, K7b in full-frame
-    # cli.train, P1–P5 in cli.probe
+    # cli.train run (K1/K2 plus the sliding evaluation's), K7a in the MS+flip
+    # evaluation, K7b in full-frame cli.train, P1–P5 in cli.probe
+    for name in ("cca_fwd_col", "cca_fwd_row", "cca_fwd_col_tc", "cca_fwd_row_tc"):
+        launches[name] += sliding[name]
     launches.update(cca_line_fwd=msflip["cca_line_fwd"], cca_line_bwd=full_frame["cca_line_bwd"],
                     **probe_launches)
     kernels = [{"name": name, "route": "cuda", "source": f"ccnet_tpu_torch/csrc/{source}",
@@ -1252,7 +1340,7 @@ def main(argv=None) -> None:
                 **{key: report[name][key] for key in ("design", "earlier_ms", "share", "tflops")
                    if key in report[name]}}
                for name, source, replaces in KERNELS]
-    for k in kernels:  # K3/K4: how many of the path's launches took the tensor cores
+    for k in kernels:  # K1–K4: how many of the path's launches took the tensor cores
         if f"{k['name']}_tc" in launches:
             k["launches_tensor_core"] = launches[f"{k['name']}_tc"]
     log("[summary] kernel: ms / bound ms (share of bound) / plain ms / library ms")

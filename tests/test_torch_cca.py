@@ -4,7 +4,10 @@
 * the kernel wrappers' CPU route (the plain versions of K1/K2) vs the TPU
   kernels run in interpret mode (``_fwd_impl_natural``, the bare
   single-device path; ``partitioned`` stays off as in
-  ``tests/test_pallas_cca.py``), out and the joint (m, L) residuals;
+  ``tests/test_pallas_cca.py``), out and the joint (m, L) residuals, at the
+  'highest' precision and, in bf16, at the default one (p rounded to bf16
+  before p·v and o_col written in bf16, as the TPU kernels do; without
+  those roundings the bf16 out misses the bound);
 * the backward: the plain versions of K3/K4 chained vs ``_bwd_natural`` in
   interpret mode on the same (q, k, v, g, m, L, delta), in f32 at the
   'highest' precision and in bf16 at the default one (p and de rounded to
@@ -37,6 +40,7 @@ from ccnet_tpu.ops.cc_attention_pallas import (
 
 from ccnet_tpu_torch.ops import cc_attention as port
 from ccnet_tpu_torch.ops import cc_attention_cuda as K
+from ccnet_tpu_torch.ops.cc_attention import NEG_INF
 
 SHAPES = [
     (1, 5, 6, 4, 8),     # tiny, W not divisible by tile
@@ -92,6 +96,102 @@ def test_kernel_cpu_route_matches_pallas_interpret(shape, dtype):
     np.testing.assert_allclose(f32(out), f32(want_out), atol=ATOL[dtype])
     np.testing.assert_allclose(m.numpy(), np.asarray(want_m), rtol=2e-5, atol=2e-5)
     np.testing.assert_allclose(L.numpy(), np.asarray(want_L), rtol=2e-5, atol=2e-5)
+
+
+def _matches_tpu_default(shape, out, want) -> bool:
+    """Whether a bf16 ``out`` is what the TPU kernels compute at the default
+    precision (``want``): bit-equal at the four small SHAPES; at 97 x 97, at
+    most 0.1 % of the elements apart (an f32 sum taken in another order flips
+    a rounding) and by at most 2^-9 x scale. Measured with ``case(1, ...)``:
+    rounding p and o_col where the TPU kernels do, 0 flips at the small
+    shapes and 6.0e-5 of the elements, 1.9e-3 x scale at 97 x 97; keeping p
+    in f32, 27-36 % of the elements and 1.3e-3-3.9e-3 x scale."""
+    a, b = f32(out), f32(want)
+    err = np.abs(a - b).max() / max(1.0, np.abs(b).max())
+    if shape != (1, 97, 97, 16, 32):
+        return bool(err <= 1e-6)
+    return bool(np.mean(a != b) <= 1e-3 and err <= 2.0 ** -9)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_bf16_kernel_cpu_route_matches_pallas_default_precision(shape):
+    """The wrappers' bf16 CPU route K1 then K2 (their plain versions, p
+    rounded to bf16 before each p·v, o_col in bf16) vs the TPU kernels K1+K2
+    in interpret mode at the default precision, on the same bf16 inputs:
+    both round p, o_col and out at the same places and sum in f32, so out
+    agrees as :func:`_matches_tpu_default` says; m and L are f32 reductions
+    of the same f32 logits: 2e-5 relative."""
+    (jq, jk, jv), (tq, tk, tv) = both(case(1, *shape), "bfloat16")
+    want_out, want_m, want_L = _fwd_impl_natural(jq, jk, jv, True, "default")
+    before = dict(K.LAUNCHES)
+    col = K.cca_fwd_col(tq, tk, tv)
+    out, m, L = K.cca_fwd_row(tq, tk, tv, *col)
+    assert K.LAUNCHES == before  # the CPU route launches nothing
+    assert col[0].dtype == torch.bfloat16 and col[0].shape == tv.shape  # as _fwd_col_kernel
+    assert col[1].dtype == col[2].dtype == torch.float32
+    assert out.dtype == torch.bfloat16 and want_out.dtype == jnp.bfloat16
+    assert _matches_tpu_default(shape, out, want_out)
+    np.testing.assert_allclose(m.numpy(), np.asarray(want_m), rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(L.numpy(), np.asarray(want_L), rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_bf16_unrounded_fwd_misses_pallas_default_precision(shape):
+    """The plain versions fed f32 copies of the same bf16 inputs keep p and
+    o_col in f32: their out, rounded to bf16, is not what the TPU kernels
+    compute at the default precision, so the bound of the test above tells
+    the two apart."""
+    (jq, jk, jv), (tq, tk, tv) = both(case(1, *shape), "bfloat16")
+    want_out = _fwd_impl_natural(jq, jk, jv, True, "default")[0]
+    t32 = [t.float() for t in (tq, tk, tv)]
+    out = K.cca_fwd_row_plain(*t32, *K.cca_fwd_col_plain(*t32))[0].to(torch.bfloat16)
+    assert not _matches_tpu_default(shape, out, want_out)
+
+
+def test_bf16_column_path_at_h1_is_the_self_slot():
+    """H = 1: the column path is all self slot, so K1's CPU route gives
+    m_col = −1e9, l_col = 1 and o_col = v (p = 1 exactly), and K2's combine
+    weighs it by exp(−1e9 − m) = 0: out is finite, the row path alone."""
+    _, (tq, tk, tv) = both(case(9, 2, 1, 7, 4, 8), "bfloat16")
+    o_col, m_col, l_col = K.cca_fwd_col(tq, tk, tv)
+    assert torch.all(m_col == NEG_INF) and torch.all(l_col == 1.0)
+    assert torch.equal(o_col, tv)
+    out, m, L = K.cca_fwd_row(tq, tk, tv, o_col, m_col, l_col)
+    assert torch.isfinite(out.float()).all() and torch.isfinite(m).all()
+    row = K.cca_line_fwd_plain(tq, tk, tv, masked=False, round_to=torch.bfloat16)
+    np.testing.assert_allclose(f32(out), f32((row[0] / row[2][..., None]).to(torch.bfloat16)))
+    np.testing.assert_array_equal(m.numpy(), row[1].numpy())
+
+
+def test_kernel_design_routes_by_dtype_and_line_length():
+    """K1–K4 take the tensor-core design for bf16 lines of at most LONG_LINE
+    on both paths (every call the Function makes there), the CUDA-core
+    kernels for f32 and longer lines; a forced K1/K2 design is checked on
+    every route, and either design's o_col is in v's dtype."""
+    z = lambda *s, dt=torch.bfloat16: torch.zeros(*s, dtype=dt)  # noqa: E731
+    assert K.kernel_design(z(8, 97, 97, 64)) == "tensor_core"
+    assert K.kernel_design(z(1, 128, 1, 4)) == "tensor_core"
+    assert K.kernel_design(z(8, 97, 97, 64, dt=torch.float32)) == "cuda_core"
+    assert K.kernel_design(z(1, 129, 257, 64)) == "cuda_core"
+    assert K.kernel_design(z(1, 7, 129, 64)) == "cuda_core"
+    t32 = [z(1, 5, 6, 4, dt=torch.float32), z(1, 5, 6, 4, dt=torch.float32),
+           z(1, 5, 6, 8, dt=torch.float32)]
+    col = K.cca_fwd_col(*t32, design="cuda_core")
+    assert col[0].dtype == torch.float32
+    assert K.cca_fwd_row(*t32, *col, design="cuda_core")[0].dtype == torch.float32
+    with pytest.raises(ValueError):  # f32 has no tensor-core design
+        K.cca_fwd_col(*t32, design="tensor_core")
+    with pytest.raises(ValueError):
+        K.cca_fwd_row(*t32, *col, design="tensor_core")
+    with pytest.raises(ValueError):
+        K.cca_fwd_col(*t32, design="wgmma")
+    t16 = [t.to(torch.bfloat16) for t in t32]
+    col = K.cca_fwd_col(*t16, design="tensor_core")
+    assert col[0].dtype == torch.bfloat16
+    with pytest.raises(ValueError):  # K2 takes o_col in v's dtype, not f32
+        K.cca_fwd_row(*t16, col[0].float(), *col[1:])
+    with pytest.raises(ValueError):  # a bf16 line past LONG_LINE has no tensor-core design
+        K.cca_fwd_col(*(z(1, 129, 2, c) for c in (4, 4, 8)), design="tensor_core")
 
 
 @pytest.mark.parametrize("shape", SHAPES)
@@ -207,12 +307,13 @@ def test_bf16_column_grads_vanish_at_h1():
 def test_bwd_design_routes_by_dtype_and_line_length():
     """K3/K4 take the tensor-core design for bf16 lines of at most
     LONG_LINE (every call the Function makes there), the CUDA-core pair for
-    f32 and longer lines; a forced design is checked on every route."""
+    f32 and longer lines, by the same rule as K1/K2; a forced design is
+    checked on every route."""
     z = lambda *s, dt=torch.bfloat16: torch.zeros(*s, dtype=dt)  # noqa: E731
-    assert K.bwd_design(z(8, 97, 97, 64)) == "tensor_core"
-    assert K.bwd_design(z(1, 128, 1, 4)) == "tensor_core"
-    assert K.bwd_design(z(8, 97, 97, 64, dt=torch.float32)) == "cuda_core"
-    assert K.bwd_design(z(1, 129, 257, 64)) == "cuda_core"
+    t16 = [z(1, 5, 6, 4), z(1, 5, 6, 4), z(1, 5, 6, 8), z(1, 5, 6, 8), z(1, 5, 6, dt=torch.float32),
+           z(1, 5, 6, dt=torch.float32) + 1, z(1, 5, 6, dt=torch.float32)]
+    assert K.kernel_design(t16[0]) == "tensor_core"
+    assert all(c.dtype == torch.bfloat16 for c in K.cca_bwd_col(*t16, design="tensor_core"))
     assert not K.uses_line_route(128, 128) and K.uses_line_route(129, 1)
     t = [z(1, 5, 6, 4, dt=torch.float32), z(1, 5, 6, 4, dt=torch.float32),
          z(1, 5, 6, 8, dt=torch.float32), z(1, 5, 6, 8, dt=torch.float32),
@@ -264,6 +365,7 @@ def test_cuda_module_imports_without_nvcc():
     code = ("import ccnet_tpu_torch.ops.cc_attention_cuda as K, ccnet_tpu_torch.ops._build as b;"
             "import ccnet_tpu_torch.ops.upsampled_ce as U, ccnet_tpu_torch.train.trainer;"
             "assert b._LIBS == {} and set(K.LAUNCHES) == {'cca_fwd_col', 'cca_fwd_row', "
+            "'cca_fwd_col_tc', 'cca_fwd_row_tc', "
             "'cca_bwd_col', 'cca_bwd_row', 'cca_bwd_col_tc', 'cca_bwd_row_tc', "
             "'cca_line_fwd', 'cca_line_bwd'} "
             "and not any(K.LAUNCHES.values());"

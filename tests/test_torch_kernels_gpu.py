@@ -10,9 +10,11 @@ Tolerances: f32 (TF32 off) at 1e-4 x scale, where only the summation order
 differs; bf16 against the plain version computed in f32 from the same bf16
 inputs at 2e-2 x scale (the kernels round their output to bf16; 3e-2 for
 the backward, whose final grads are rounded too, and for the line route
-K7a/K7b); the tensor-core K3/K4 against the plain version fed the same
-bf16 tensors, which rounds p, de and the grads where the kernels do, at
-1e-2 x scale (f32 sums in another order flip a rounding here and there);
+K7a/K7b); the tensor-core K1/K2 and K3/K4 against the plain versions fed
+the same bf16 tensors, which round p (and de), o_col, the output and the
+grads where the kernels do, at 1e-2 x scale (f32 sums in another order flip
+a rounding here and there; K1/K2's bf16 outputs also bit-equal but for at
+most 1 % of their elements);
 the model at 5e-2 x scale with argmax agreement >= 99.5 % (bf16
 layers after CCA). The loss kernels: K5 at 1e-5 abs, K6 at 1e-4 x
 max|plain grad|.
@@ -70,7 +72,11 @@ def test_kernels_match_plain(cuda, shape, dtype):
         pairs += zip(K.criss_cross_attention_cuda(q, k, v),
                      plain.criss_cross_attention_stats(q32, k32, v32))
     line = K.uses_line_route(shape[1], shape[2])  # the op takes K7a there, not K1/K2
-    assert K.LAUNCHES == {n: c + {"cca_fwd_col": 2 - line, "cca_fwd_row": 2 - line,
+    tc = K.kernel_design(q) == "tensor_core"  # f32 and the long shape: CUDA cores
+    assert tc == (dtype == "bfloat16" and not line)
+    calls = 2 - line  # the wrappers' and the op's, or the wrappers' alone
+    assert K.LAUNCHES == {n: c + {"cca_fwd_col": calls, "cca_fwd_row": calls,
+                                  "cca_fwd_col_tc": calls * tc, "cca_fwd_row_tc": calls * tc,
                                   "cca_line_fwd": 2 * line}.get(n, 0)
                           for n, c in before.items()}
     for got, want in pairs:
@@ -118,7 +124,7 @@ def test_bwd_kernels_match_plain(cuda, shape, dtype):
         before = dict(K.LAUNCHES)
         col = K.cca_bwd_col(q, k, v, g, m, L, delta)
         row = K.cca_bwd_row(q, k, v, g, m, L, delta, *col)
-        tc = K.bwd_design(q) == "tensor_core"  # f32 and the long shape: CUDA cores
+        tc = K.kernel_design(q) == "tensor_core"  # f32 and the long shape: CUDA cores
         assert tc == (dtype == "bfloat16" and max(shape[1:3]) <= K.LONG_LINE)
         assert K.LAUNCHES == {n: c + {"cca_bwd_col": 1, "cca_bwd_row": 1, "cca_bwd_col_tc": tc,
                                       "cca_bwd_row_tc": tc}.get(n, 0)
@@ -133,13 +139,56 @@ def test_bwd_kernels_match_plain(cuda, shape, dtype):
         assert (got.float() - want.float()).abs().max().item() <= tol * scale
 
 
-# the tensor-core K3/K4 (B, H, W, Cq, Cv): the sliding tile batch, the
+def _flipped(got, want) -> float:
+    """The share of the elements of ``got`` not bit-equal to ``want``."""
+    return (got != want).float().mean().item()
+
+
+# the tensor-core K1–K4 (B, H, W, Cq, Cv): the sliding tile batch, the
 # longest line (128) on both paths, and edge lines N in {1, 7, 16, 17} with
 # Cq in {4, 8, 12, 64} and Cv in {8, 16, 21, 512} (Cq 4 and 12, Cv 21: rows
 # that take element copies, not 16-byte ones; Cv 21: odd, stored singly)
 TC_SHAPES = [(8, 97, 97, 64, 512), (1, 128, 128, 64, 512), (2, 1, 7, 4, 8), (2, 7, 1, 8, 16),
              (2, 16, 17, 8, 16), (1, 17, 16, 4, 512), (2, 128, 7, 8, 8), (1, 9, 128, 64, 16),
              (1, 5, 6, 12, 21)]
+
+
+@pytest.mark.parametrize("shape", TC_SHAPES)
+def test_tensor_core_fwd_matches_rounding_plain(cuda, shape):
+    """The tensor-core K1/K2 vs their plain versions on the same bf16
+    tensors (p rounded to bf16 before p·v, o_col in bf16, as the kernels and
+    the TPU kernels at the default precision round them): within 1e-2 x
+    scale, and o_col and out bit-equal but for at most 1 % of flipped
+    roundings, which the plain versions that keep p in f32 exceed. Each
+    launch counts as the tensor-core design and allocates its three outputs
+    and nothing else; K2 is fed K1's own outputs."""
+    q, k, v = (torch.from_numpy(a).to(cuda, torch.bfloat16) for a in case(13, *shape))
+    assert K.kernel_design(q) == "tensor_core"
+    with torch.no_grad():
+        before = dict(K.LAUNCHES)
+        outs = []
+        for fn in (K.cca_fwd_col, K.cca_fwd_row):
+            allocs = torch.cuda.memory_stats()["allocation.all.allocated"]
+            outs.append(fn(q, k, v, *(outs[0] if outs else ())))
+            assert torch.cuda.memory_stats()["allocation.all.allocated"] - allocs == 3
+        col, row = outs
+        assert K.LAUNCHES == {n: c + (n.startswith(("cca_fwd_col", "cca_fwd_row")))
+                              for n, c in before.items()}
+        want_col = K.cca_fwd_col_plain(q, k, v)
+        want_row = K.cca_fwd_row_plain(q, k, v, *col)
+        t32 = [t.float() for t in (q, k, v)]
+        unrounded = K.cca_fwd_row_plain(*t32, *K.cca_fwd_col_plain(*t32))[0].to(torch.bfloat16)
+    assert max(_flipped(col[0], want_col[0]), _flipped(row[0], want_row[0])) <= 1e-2
+    assert _flipped(unrounded, want_row[0]) > 1e-2
+    if shape[1] == 1:  # the column path is all self slot: o_col = v, l_col = 1
+        assert torch.equal(col[0], v) and torch.all(col[1] == plain.NEG_INF)
+        assert torch.all(col[2] == 1.0)
+    for got, want in (*zip(col, want_col), *zip(row, want_row)):
+        assert got.dtype == want.dtype and got.shape == want.shape
+        assert torch.isfinite(got.float()).all()
+        scale = max(1.0, want.float().abs().max().item())
+        assert (got.float() - want.float()).abs().max().item() <= 1e-2 * scale
+    assert col[0].dtype == row[0].dtype == torch.bfloat16
 
 
 @pytest.mark.parametrize("shape", TC_SHAPES)
@@ -150,7 +199,7 @@ def test_tensor_core_bwd_matches_rounding_plain(cuda, shape):
     tensor-core design and allocates its three outputs and nothing else."""
     q, k, v = (torch.from_numpy(a).to(cuda, torch.bfloat16) for a in case(11, *shape))
     g = torch.from_numpy(case(12, *shape)[2]).to(cuda, torch.bfloat16)
-    assert K.bwd_design(q) == "tensor_core"
+    assert K.kernel_design(q) == "tensor_core"
     with torch.no_grad():
         out, m, L = K.criss_cross_attention_cuda(q, k, v)
         delta = (g.float() * out.float()).sum(dim=-1)
