@@ -18,8 +18,9 @@
 // Two designs, chosen by the wrapper from the dtype and the line length:
 //
 // 1. Tensor cores, one block per line (cca_bwd_tc_kernel): bf16 lines of
-//    N <= 128, which are every call CrissCrossAttentionFn sends here (longer
-//    lines take the line route). It computes what the TPU kernels compute
+//    N <= 128, which at the model's widths are every call
+//    CrissCrossAttentionFn sends here (the JAX package's route leaves K3/K4
+//    past H = 99 or W = 106). It computes what the TPU kernels compute
 //    under the JAX package's default precision: bf16 operands, f32 sums, p
 //    and de rounded to bf16 before the products that consume them, de from
 //    the f32 p. The block holds a whole line, padded to N_p = 16
@@ -41,7 +42,8 @@
 //
 // 2. CUDA cores, two passes (cca_bwd_query_kernel, cca_bwd_key_kernel): f32
 //    (the counterpart of the JAX package's "highest" precision, f32 FMAs)
-//    and bf16 lines longer than 128, which only a forced call makes. Split
+//    and bf16 lines longer than 128 (natural-route calls at small widths
+//    only; p and de are then not rounded). Split
 //    as FlashAttention-2's backward: a query-major pass per (line, 16
 //    queries) recomputes p, dp = g.v^T and de, accumulates dq and writes p
 //    and de to f32 scratch P, DE (B*H*W*N floats each); a key-major pass per

@@ -28,8 +28,9 @@
 // Two designs, chosen by the wrapper from the dtype and the line length:
 //
 // 1. Tensor cores, one block per line (cca_fwd_tc_kernel): bf16 lines of
-//    N <= 128, which are every call CrissCrossAttentionFn sends here (longer
-//    lines take the line route). It computes what the TPU kernels compute
+//    N <= 128, which at the model's widths are every call
+//    CrissCrossAttentionFn sends here but the forward at H = 129-130 (the
+//    JAX package's route choice). It computes what the TPU kernels compute
 //    under the JAX package's default precision: bf16 operands, f32 sums, m
 //    and l from the f32 p, p rounded to bf16 before p.v, o_col written in
 //    bf16. The block holds the line padded to N_p = 16 ceil(N / 16) and has
@@ -67,8 +68,9 @@
 //    3 / 2 blocks per SM.
 //
 // 2. CUDA cores (cca_line_kernel): f32 (the counterpart of the JAX package's
-//    "highest" precision, f32 FMAs) and bf16 lines longer than 128, which
-//    only a forced call makes. One block per (line, 16 queries, 256 value
+//    "highest" precision, f32 FMAs) and bf16 lines longer than 128 (where
+//    the route stays natural past them; p is then not rounded, unlike the
+//    TPU kernels). One block per (line, 16 queries, 256 value
 //    channels); keys stream through in tiles of 32 with an online softmax,
 //    so any line length works; each thread owns one value channel. p is not
 //    rounded (f32 throughout); o_col is stored in the input dtype.

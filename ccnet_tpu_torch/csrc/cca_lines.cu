@@ -1,12 +1,15 @@
-// Criss-cross attention, one path over lines, for Hopper (sm_90a):
-// K7a cca_line_fwd, K7b cca_line_bwd.
+// Criss-cross attention, one path over lines, for Hopper (sm_90a), on the
+// CUDA cores: K7a cca_line_fwd, K7b cca_line_bwd in f32 arithmetic. The
+// wrapper sends them the f32 calls (the JAX package's "highest" precision);
+// bf16 calls take the tensor-core kernels of cca_lines_tc.cu, which round
+// as the TPU kernels do at the default precision. A forced bf16 call here
+// (design="cuda_core", for timing) writes f32 outputs and rounds nothing.
 //
 // Replaces the TPU kernels of ccnet_tpu/ops/cc_attention_pallas.py:
 //   K7a cca_line_fwd  <- _legacy_fwd_kernel  (launched by _legacy_run_path_fwd)
 //   K7b cca_line_bwd  <- _legacy_bwd_kernel  (launched by _legacy_run_path_bwd)
 // The JAX package takes this route when the (8, N, N) f32 slabs of the
-// natural kernels no longer fit VMEM, i.e. on long lines: every whole-image
-// shape (features 97 x 193 up to 225 x 449). Each call runs ONE path over
+// natural kernels no longer fit VMEM, i.e. on long lines. Each call runs ONE path over
 // (B, M, N) lines, attention along N, with the diagonal at -1e9 when
 // `masked` (the column path):
 //   forward   e = q.k^T, m = max e, l = sum exp(e - m), o = exp(e - m).v
@@ -26,16 +29,15 @@
 // and the logits, recomputed once per 256-channel slice) over ~0.7 GB of
 // traffic (the f32 o of both paths dominates), and the backward ~240 GFLOP
 // (dp = g.v^T is computed twice, see K7b), counted from the shapes. Both are
-// far above the f32 CUDA-core balance point, so this first version, which
-// multiplies in f32 on the CUDA cores, is bound by FMA issue and
-// shared-memory reads. Tensor cores (wgmma / mma.sync) are later work.
+// far above the f32 CUDA-core balance point, so these kernels, which
+// multiply in f32 on the CUDA cores, are bound by FMA issue and
+// shared-memory reads.
 //
 // K7a: one block per (line, 16 queries, 256 value channels), the design of
 // K1 (csrc/cca_fwd.cu) on strided lines: keys stream through shared memory
 // in tiles of 32 with an online softmax (running max and sum per query), so
-// any N works without an N x N slab. o is written in f32, which is more
-// exact than the TPU kernel's o in v's dtype (bf16 in training); the
-// combine casts once.
+// any N works without an N x N slab. o is written in f32, v's dtype on the
+// calls the wrapper makes.
 //
 // K7b keeps no O(N) scratch per pixel: that is the point of this route. K3/K4
 // (csrc/cca_bwd.cu) store each path's p and de, B*H*W*N floats each, to skip

@@ -1,12 +1,14 @@
-// Line-per-block helpers of the tensor-core criss-cross attention kernels
-// (cca_fwd.cu K1/K2, cca_bwd.cu K3/K4): the pixels of one line, bf16 tiles
-// of a line staged into shared memory with cp.async, pair stores, and the
-// q.k^T logits of a warp's 16 queries on mma.sync.
+// Line helpers of the tensor-core criss-cross attention kernels (cca_fwd.cu
+// K1/K2, cca_bwd.cu K3/K4, cca_lines_tc.cu K7a/K7b): the pixels of one line,
+// bf16 tiles of a line staged into shared memory with cp.async, pair
+// stores, and the q.k^T logits of a warp's 16 queries on mma.sync.
 //
-// A line is one column (H pixels at stride W) or one row (W pixels at
-// stride 1) of NHWC (B, H, W, C) tensors; a block holds a whole line,
-// padded to N_p = 16 ceil(N / 16) positions, and its warp w owns positions
-// 16w .. 16w + 15.
+// A line is N pixels given by strides: line j of image b of (B, M, N)
+// lines starts at pixel b * sb + j * sm and steps by sn. The columns of
+// NHWC (B, H, W, C) tensors are (M, N, sb, sm, sn) = (W, H, HW, 1, W), its
+// rows (H, W, HW, W, 1). K1-K4 hold a whole line in a block, padded to
+// N_p = 16 ceil(N / 16) positions, and their warp w owns positions
+// 16w .. 16w + 15; K7a/K7b tile the line.
 
 #pragma once
 
@@ -23,17 +25,19 @@ constexpr int TC_PAD = 8;      // row padding (bf16): an odd number of 16-byte u
 
 __host__ __device__ __forceinline__ int round16(int c) { return (c + 15) & ~15; }
 
-// Pixel index of position t of line `line` is base + t * step.
+// Pixel index of position 0 of line `line` (= b * M + j) of strided lines.
+__device__ __forceinline__ long long line_base(int line, int M, long long sb, long long sm) {
+  const int b = line / M;
+  return b * sb + (long long)(line - b * M) * sm;
+}
+
+// Pixel index of position t of column or row `line` of NHWC (B, H, W, C)
+// is base + t * step.
 __device__ __forceinline__ void line_geometry(bool col, int line, int H, int W,
                                               long long& base, long long& step) {
-  if (col) {
-    const int b = line / W, w = line - b * W;
-    base = (long long)b * H * W + w;
-    step = W;
-  } else {
-    base = (long long)line * W;
-    step = 1;
-  }
+  const long long hw = (long long)H * W;
+  base = col ? line_base(line, W, hw, 1) : line_base(line, H, hw, W);
+  step = col ? W : 1;
 }
 
 // S[t][c] = x[pixel t][c0 + c] for t < np, c < width (a multiple of 8),

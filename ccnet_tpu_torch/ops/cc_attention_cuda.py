@@ -2,8 +2,9 @@
 
 Counterpart of :mod:`ccnet_tpu.ops.cc_attention_pallas` (``_fwd_impl``,
 ``_bwd_both_paths`` and the custom VJP around them). The kernels live in
-``ccnet_tpu_torch/csrc/cca_fwd.cu``, ``csrc/cca_bwd.cu`` and
-``csrc/cca_lines.cu``; each has a wrapper here and a plain PyTorch version
+``ccnet_tpu_torch/csrc/cca_fwd.cu``, ``csrc/cca_bwd.cu``,
+``csrc/cca_lines.cu`` and ``csrc/cca_lines_tc.cu``; each has a wrapper here
+and a plain PyTorch version
 beside it:
 
 * K1 :func:`cca_fwd_col` replaces ``_fwd_col_kernel``: the column path with
@@ -28,22 +29,27 @@ beside it:
   no scratch), f32 and longer bf16 lines to the CUDA-core pair (f32
   arithmetic, p and de through f32 scratch).
 * K7a :func:`cca_line_fwd` replaces ``_legacy_fwd_kernel``: ONE path over
-  ``(B, M, N, C)`` lines, optionally self-masked; plain version
-  :func:`cca_line_fwd_plain`.
+  ``(B, M, N, C)`` lines, optionally self-masked, ``o`` in v's dtype;
+  plain version :func:`cca_line_fwd_plain`.
 * K7b :func:`cca_line_bwd` replaces ``_legacy_bwd_kernel``: that path's
-  backward from the joint stats, with no O(N) scratch per pixel; plain
-  version :func:`cca_line_bwd_plain`.
+  backward from the joint stats, with no O(N) scratch per pixel, the grads
+  in the input dtype; plain version :func:`cca_line_bwd_plain`.
+  K7a and K7b each have two designs (:func:`line_design`): bf16 goes to the
+  tensor-core kernels of ``csrc/cca_lines_tc.cu`` (keys tiled, any line
+  length; p and de rounded to bf16, outputs in bf16, as the TPU kernels at
+  the default precision), f32 to the CUDA-core kernels of
+  ``csrc/cca_lines.cu``.
 
 :class:`CrissCrossAttentionFn` is the ``torch.autograd.Function`` around
-them (the JAX package's ``_cca_pallas`` custom VJP). Like ``_fwd_impl`` it
-picks one of two routes per call (:func:`uses_line_route`): K1 → K2
-forward and K3 → K4 backward on short lines (the 97² sliding tiles and
-769² crops), or the line route (:func:`cca_line_route_fwd`,
-:func:`cca_line_route_bwd`, the counterparts of ``_legacy_fwd_impl`` and
-``_legacy_bwd_both_paths``) on long ones: K7a/K7b once per path, the column
-path read in place through a transposed view, the two-path combine and the
-gradient sum in plain torch. :func:`criss_cross_attention_cuda` goes
-through it.
+them (the JAX package's ``_cca_pallas`` custom VJP). Like ``_fwd_impl`` and
+``_bwd_both_paths`` it picks one of two routes per call and direction
+(:func:`uses_line_route`, the JAX package's own budget arithmetic): K1 → K2
+forward and K3 → K4 backward (the 97² sliding tiles and 769² crops), or
+the line route (:func:`cca_line_route_fwd`, :func:`cca_line_route_bwd`, the
+counterparts of ``_legacy_fwd_impl`` and ``_legacy_bwd_both_paths``): K7a/
+K7b once per path, the column path read in place through a transposed
+view, the two-path combine and the gradient sum in plain torch.
+:func:`criss_cross_attention_cuda` goes through it.
 
 The libraries are built with ``nvcc`` at first use (:mod:`._build`) and
 bound with ctypes: every pointer and the stream go as ``c_void_p`` (a bare
@@ -70,17 +76,13 @@ from ccnet_tpu_torch.ops.cc_attention import NEG_INF
 # launches of each kernel made by this process; callers may reset them to 0.
 # ``cca_fwd_col_tc`` / ``cca_fwd_row_tc`` and ``cca_bwd_col_tc`` /
 # ``cca_bwd_row_tc`` count the K1/K2 and K3/K4 launches that took the
-# tensor-core design (each also counts under the kernel's own name).
+# tensor-core design, ``cca_line_fwd_tc`` / ``cca_line_bwd_tc`` those of
+# K7a/K7b (each also counts under the kernel's own name).
 LAUNCHES = {"cca_fwd_col": 0, "cca_fwd_row": 0, "cca_fwd_col_tc": 0, "cca_fwd_row_tc": 0,
             "cca_bwd_col": 0, "cca_bwd_row": 0, "cca_bwd_col_tc": 0, "cca_bwd_row_tc": 0,
-            "cca_line_fwd": 0, "cca_line_bwd": 0}
+            "cca_line_fwd": 0, "cca_line_bwd": 0, "cca_line_fwd_tc": 0, "cca_line_bwd_tc": 0}
 
-# A call takes the line route (K7a/K7b) when its longer axis exceeds this.
-# It mirrors where ``_fwd_impl`` / ``_bwd_both_paths`` leave K1–K4 at the
-# model's widths (Cq 64, Cv 512, bf16): ``_pick_tile``'s 11 MiB budget holds
-# fewer than 8 lines past ~130 (columns) / ~122 (rows) forward and ~99 /
-# ~106 backward. So the 97² sliding tiles and 769² crops run K1–K4, and
-# every whole-image shape (features 97×193 at scale 0.75 and up) K7a/K7b.
+# The longest line of the tensor-core K1–K4 (one block of 8 warps per line).
 LONG_LINE = 128
 
 MAX_CQ = 128  # the kernels stage 48 lines of Cq f32 q/k values in shared memory
@@ -142,10 +144,69 @@ def _lines_lib():
     return lib
 
 
-def uses_line_route(H: int, W: int) -> bool:
-    """Whether a call on ``(B, H, W, C)`` features takes the line route
-    (K7a/K7b) rather than K1–K4: its longer axis exceeds :data:`LONG_LINE`."""
-    return max(H, W) > LONG_LINE
+def _lines_tc_lib():
+    from ccnet_tpu_torch.ops._build import load_library
+
+    lib = load_library("cca_lines_tc")
+    if not getattr(lib, "_ccnet_bound", False):
+        _L = ctypes.c_longlong
+        lib.cca_line_fwd_tc.argtypes = [_P] * 6 + [_I] * 5 + [_L] * 3 + [_I, _P]
+        lib.cca_line_fwd_tc.restype = ctypes.c_int
+        lib.cca_line_bwd_tc.argtypes = [_P] * 11 + [_I] * 5 + [_L] * 3 + [_I, _P]
+        lib.cca_line_bwd_tc.restype = ctypes.c_int
+        lib.cca_line_fwd_tc_max_n.argtypes = [_I]
+        lib.cca_line_fwd_tc_max_n.restype = _I
+        lib._ccnet_bound = True
+    return lib
+
+
+def _natural_lines(n: int, cq: int, cv: int, isz: int, osz: int, kind: str,
+                   highp: bool) -> int:
+    """How many lines of ``n`` pixels the JAX package's natural-layout
+    kernels fit in their VMEM budget: ``_pick_tile``'s arithmetic
+    (``ccnet_tpu/ops/cc_attention_pallas.py``), kept here because that
+    module imports JAX. Below 8 the JAX package leaves its natural kernels
+    (K1–K4) for the line route (K7a/K7b)."""
+    if kind == "fwd_col":
+        per_line = 2 * n * n * 4 + 3 * n * (2 * cq + cv) * isz + 2 * n * cv * 4 + 2 * n * cv * osz
+    elif kind == "fwd_row":
+        per_line = (2 * n * n * 4 + 2 * n * (2 * cq * isz + cv * isz + cv * osz)
+                    + 2 * n * cv * 4 + 2 * n * cv * osz)
+    elif kind == "bwd_col":
+        per_line = (3 * n * n * 4 + 3 * n * 2 * (cq + cv) * isz + n * (2 * cq + cv) * (4 + osz)
+                    + 2 * n * (2 * cq + cv) * osz)
+    elif kind == "bwd_row":
+        per_line = (3 * n * n * 4 + 2 * n * (2 * (cq + cv) * isz + (2 * cq + cv) * osz)
+                    + n * (2 * cq + cv) * 4 + 2 * n * (2 * cq + cv) * osz)
+    else:
+        raise ValueError(kind)
+    return int((8 if highp else 11) * 1024 * 1024 // max(per_line, 1))
+
+
+DIRECTIONS = ("fwd", "bwd")
+
+
+def uses_line_route(direction: str, H: int, W: int, Cq: int = 64, Cv: int = 512,
+                    dtype=torch.bfloat16) -> bool:
+    """Whether the ``direction`` (``"fwd"`` or ``"bwd"``) of a call on
+    ``(B, H, W, C)`` features takes the line route (K7a/K7b) rather than
+    K1–K4: where ``_fwd_impl`` / ``_bwd_both_paths`` take it, i.e. where the
+    natural kernels' tile falls below 8 lines on either path. bf16 inputs
+    stand for the JAX package's default precision (outputs and grads in
+    bf16), f32 for its "highest". At the model's widths (the defaults) the
+    forward leaves K1/K2 past H = 130 or W = 122 and the backward leaves
+    K3/K4 past H = 99 or W = 106: the 97² sliding tiles and 769² crops run
+    K1–K4 both ways, every whole-image shape (97×193 and up) K7a/K7b."""
+    if direction not in DIRECTIONS:
+        raise ValueError(f"direction must be one of {DIRECTIONS}; got {direction!r}")
+    highp = dtype == torch.float32
+    isz = osz = 4 if highp else torch.finfo(dtype).bits // 8
+    return (_natural_lines(H, Cq, Cv, isz, osz, f"{direction}_col", highp) < 8
+            or _natural_lines(W, Cq, Cv, isz, osz, f"{direction}_row", highp) < 8)
+
+
+def _line_route_of(direction: str, q: torch.Tensor, v: torch.Tensor) -> bool:
+    return uses_line_route(direction, q.shape[1], q.shape[2], q.shape[-1], v.shape[-1], q.dtype)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lines: bool = False) -> str:
@@ -292,25 +353,27 @@ DESIGNS = ("tensor_core", "cuda_core")
 def kernel_design(q: torch.Tensor) -> str:
     """The design K1–K4 take for ``q``: ``"tensor_core"`` (one block per
     line, the products on the tensor cores in bf16, no scratch) for bf16
-    lines of at most :data:`LONG_LINE` on both paths, which is every call
-    :class:`CrissCrossAttentionFn` sends to K1–K4; ``"cuda_core"`` (f32
-    arithmetic: K1/K2 an online softmax over key tiles, K3/K4 p and de
-    through f32 scratch) for f32 and for longer lines, which only a forced
-    call makes."""
-    if q.dtype == torch.bfloat16 and not uses_line_route(q.shape[1], q.shape[2]):
+    lines of at most :data:`LONG_LINE` on both paths, which at the model's
+    widths is every call :class:`CrissCrossAttentionFn` sends to K1–K4 but
+    the forward at H = 129 or 130; ``"cuda_core"`` (f32 arithmetic: K1/K2 an
+    online softmax over key tiles, K3/K4 p and de through f32 scratch) for
+    f32 and for longer lines."""
+    if q.dtype == torch.bfloat16 and max(q.shape[1], q.shape[2]) <= LONG_LINE:
         return "tensor_core"
     return "cuda_core"
 
 
-def _resolve_design(name: str, q: torch.Tensor, design) -> str:
-    """``design`` checked against ``q`` (``None``: :func:`kernel_design`)."""
+def _resolve_design(name: str, q: torch.Tensor, design, rule=kernel_design) -> str:
+    """``design`` checked against ``q`` (``None``: ``rule(q)``, the kernel's
+    own choice: :func:`kernel_design` for K1–K4, :func:`line_design` for
+    K7a/K7b)."""
     if design is None:
-        return kernel_design(q)
+        return rule(q)
     if design not in DESIGNS:
         raise ValueError(f"{name}: design must be one of {DESIGNS}; got {design!r}")
-    if design == "tensor_core" and kernel_design(q) != design:
-        raise ValueError(f"{name}: the tensor-core design takes bf16 lines of at most "
-                         f"{LONG_LINE}; got {q.dtype} {tuple(q.shape)}")
+    if design == "tensor_core" and rule(q) != design:
+        raise ValueError(f"{name}: the tensor-core design does not take {q.dtype} "
+                         f"{tuple(q.shape)}")
     return design
 
 
@@ -442,95 +505,141 @@ def _check_lines(name: str, t: torch.Tensor, col: bool) -> None:
                          f"transpose(1, 2) of a contiguous tensor, as q is")
 
 
-def _line_launch(name, q, tensors, outs, masked):
-    """Launch K7a or K7b on ``(B, M, N, C)`` lines: row lines are contiguous,
-    column lines a transposed view; the kernel reads and writes every tensor
-    through the pixel strides (batch, line, position) of that layout."""
+def line_design(q: torch.Tensor) -> str:
+    """The design K7a/K7b take for ``q``: ``"tensor_core"`` for bf16 (the
+    products on the tensor cores, p and de rounded to bf16 and the outputs
+    written in bf16, as the TPU kernels do at the default precision), for
+    every line length; ``"cuda_core"`` (f32 arithmetic, outputs in f32) for
+    f32, the JAX package's "highest"."""
+    return "tensor_core" if q.dtype == torch.bfloat16 else "cuda_core"
+
+
+def _line_launch(name, design, q, tensors, outs, masked):
+    """Launch K7a or K7b in ``design`` on ``(B, M, N, C)`` lines: row lines
+    are contiguous, column lines a transposed view; the kernel reads and
+    writes every tensor through the pixel strides (batch, line, position)
+    of that layout. The tensor-core K7b also gets f32 scratch for the key
+    blocks' parts of dq (``ceil(N / 64)`` × B·M·N × Cq floats)."""
     B, M, N, Cq = q.shape
     col = not q.is_contiguous()
     for i, t in enumerate((*tensors, *outs)):
         _check_lines(f"{name} argument {i}", t, col)
     strides = (M * N, 1, M) if col else (M * N, N, 1)
     Cv = tensors[2].shape[-1]
-    ptrs = [_P(t.data_ptr()) for t in (*tensors, *outs)]
-    lib = _lines_lib()
-    rc = getattr(lib, name)(*ptrs, B, M, N, Cq, Cv, *strides, int(masked),
-                            int(q.dtype == torch.bfloat16),
-                            _P(torch.cuda.current_stream().cuda_stream))
+    stream = _P(torch.cuda.current_stream().cuda_stream)
+    if design == "tensor_core":
+        scratch = ()
+        if name == "cca_line_bwd":
+            scratch = (torch.empty(((N + 63) // 64) * B * M * N * Cq, device=q.device,
+                                   dtype=torch.float32),)
+        ptrs = [_P(t.data_ptr()) for t in (*tensors, *scratch, *outs)]
+        rc = getattr(_lines_tc_lib(), f"{name}_tc")(*ptrs, B, M, N, Cq, Cv, *strides,
+                                                    int(masked), stream)
+    else:
+        ptrs = [_P(t.data_ptr()) for t in (*tensors, *outs)]
+        rc = getattr(_lines_lib(), name)(*ptrs, B, M, N, Cq, Cv, *strides, int(masked),
+                                         int(q.dtype == torch.bfloat16), stream)
     if rc != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+        raise RuntimeError(f"{name} ({design}) launch failed: CUDA error {rc}")
     LAUNCHES[name] += 1
+    if design == "tensor_core":
+        LAUNCHES[f"{name}_tc"] += 1
 
 
-def _empty_lines(like: torch.Tensor, shape) -> torch.Tensor:
-    """f32 ``shape`` in ``like``'s line layout (contiguous or column view)."""
+def _empty_lines(like: torch.Tensor, shape, dtype=torch.float32) -> torch.Tensor:
+    """``shape`` of ``dtype`` in ``like``'s line layout (contiguous or column
+    view)."""
     if like.is_contiguous():
-        return torch.empty(shape, device=like.device, dtype=torch.float32)
+        return torch.empty(shape, device=like.device, dtype=dtype)
     return _to_col(torch.empty((shape[0], shape[2], shape[1], *shape[3:]),
-                               device=like.device, dtype=torch.float32))
+                               device=like.device, dtype=dtype))
 
 
-def cca_line_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, masked: bool):
+def cca_line_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, masked: bool, design=None):
     """K7a: one path over ``(B, M, N, C)`` lines, attention along N:
-    ``(o (B,M,N,Cv) f32, m (B,M,N) f32, l (B,M,N) f32)``, the outputs in q's
+    ``(o (B,M,N,Cv), m (B,M,N) f32, l (B,M,N) f32)``, the outputs in q's
     line layout (so column stats land in NHWC order with no copy).
-    ``masked`` sets the diagonal to −1e9 (the column path)."""
-    if _check(q, k, v, lines=True) == "cpu":
-        return cca_line_fwd_plain(q, k, v, masked)
-    B, M, N, _ = q.shape
+    ``masked`` sets the diagonal to −1e9 (the column path). ``o`` is in v's
+    dtype, as ``_legacy_fwd_kernel`` writes it; for bf16, p is rounded to
+    bf16 before ``p·v``. ``design`` forces one of :data:`DESIGNS` on a CUDA
+    tensor (to time one against the other; the CUDA-core design neither
+    rounds p nor writes ``o`` in bf16); ``None`` takes :func:`line_design`."""
+    route = _check(q, k, v, lines=True)
+    design = _resolve_design("cca_line_fwd", q, design, line_design)
+    if route == "cpu":
+        o, m, l = cca_line_fwd_plain(q, k, v, masked, round_to=_mxu_round(q))
+        return o.to(v.dtype), m, l
+    B, M, N, Cq = q.shape
+    o_dtype = torch.float32
+    if design == "tensor_core":
+        o_dtype = torch.bfloat16
+        longest = _lines_tc_lib().cca_line_fwd_tc_max_n(Cq)
+        if N > longest:
+            raise ValueError(f"cca_line_fwd: lines of {N} exceed the {longest} the tensor-core "
+                             f"kernel's p tile holds at Cq={Cq}")
     with torch.cuda.device(q.device):
-        outs = (_empty_lines(q, (B, M, N, v.shape[-1])), _empty_lines(q, (B, M, N)),
+        outs = (_empty_lines(q, (B, M, N, v.shape[-1]), o_dtype), _empty_lines(q, (B, M, N)),
                 _empty_lines(q, (B, M, N)))
-        _line_launch("cca_line_fwd", q, (q, k, v), outs, masked)
+        _line_launch("cca_line_fwd", design, q, (q, k, v), outs, masked)
     return outs
 
 
-def cca_line_bwd(q, k, v, g, m, L, delta, masked: bool):
-    """K7b: one path's ``(dq, dk, dv)`` f32 over ``(B, M, N, C)`` lines from
-    the joint stats ``m``, ``L`` and ``delta = Σ_c out·g`` (``(B, M, N)``
-    f32), ``g`` in v's dtype; every tensor in q's line layout."""
-    if _check_bwd(q, k, v, g, m, L, delta, lines=True) == "cpu":
-        return cca_line_bwd_plain(q, k, v, g, m, L, delta, masked)
-    smem = _lines_lib().cca_line_bwd_smem_bytes(q.shape[-1], v.shape[-1])
-    if smem > MAX_SMEM:
-        raise ValueError(f"cca_line_bwd: Cv={v.shape[-1]} needs {smem} B of shared memory, "
-                         f"over {MAX_SMEM}")
+def cca_line_bwd(q, k, v, g, m, L, delta, masked: bool, design=None):
+    """K7b: one path's ``(dq, dk, dv)`` over ``(B, M, N, C)`` lines from the
+    joint stats ``m``, ``L`` and ``delta = Σ_c out·g`` (``(B, M, N)`` f32),
+    ``g`` in v's dtype; every tensor in q's line layout. The grads are in
+    the input dtype, as ``_legacy_bwd_kernel`` writes them; for bf16, p and
+    de are rounded to bf16 before the products that consume them.
+    ``design`` as for :func:`cca_line_fwd` (the CUDA-core design writes f32
+    grads)."""
+    route = _check_bwd(q, k, v, g, m, L, delta, lines=True)
+    design = _resolve_design("cca_line_bwd", q, design, line_design)
+    if route == "cpu":
+        grads = cca_line_bwd_plain(q, k, v, g, m, L, delta, masked, round_to=_mxu_round(q))
+        return tuple(d.to(t.dtype) for d, t in zip(grads, (q, k, v)))
+    if design == "cuda_core":
+        smem = _lines_lib().cca_line_bwd_smem_bytes(q.shape[-1], v.shape[-1])
+        if smem > MAX_SMEM:
+            raise ValueError(f"cca_line_bwd: Cv={v.shape[-1]} needs {smem} B of shared memory, "
+                             f"over {MAX_SMEM}")
+    dtype = torch.bfloat16 if design == "tensor_core" else torch.float32
     with torch.cuda.device(q.device):
-        outs = tuple(_empty_lines(q, t.shape) for t in (q, k, v))
-        _line_launch("cca_line_bwd", q, (q, k, v, g, m, L, delta), outs, masked)
+        outs = tuple(_empty_lines(q, t.shape, dtype) for t in (q, k, v))
+        _line_launch("cca_line_bwd", design, q, (q, k, v, g, m, L, delta), outs, masked)
     return outs
 
 
 def cca_line_route_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     """The line route's forward on NHWC q, k, v (``_legacy_fwd_impl``): K7a on
-    the columns (masked) and on the rows, then the joint combine in plain
-    torch. Returns ``(out f32, m, L)``."""
-    col = map(_to_col, cca_line_fwd(*map(_to_col, (q, k, v)), masked=True))
-    return _combine(*col, *cca_line_fwd(q, k, v, masked=False))
+    the columns (masked) and on the rows, each ``o`` in v's dtype, then the
+    joint combine in f32 in plain torch. Returns ``(out f32, m, L)``."""
+    o_c, m_c, l_c = map(_to_col, cca_line_fwd(*map(_to_col, (q, k, v)), masked=True))
+    o_r, m_r, l_r = cca_line_fwd(q, k, v, masked=False)
+    return _combine(o_c.float(), m_c, l_c, o_r.float(), m_r, l_r)
 
 
 def cca_line_route_bwd(q, k, v, g, m, L, delta):
     """The line route's backward (``_legacy_bwd_both_paths``): K7b on the
-    columns and on the rows, summed and cast to the input dtypes."""
+    columns and on the rows, each path's grads in the input dtype, summed
+    (in bf16 for bf16 inputs, as the JAX package sums them)."""
     col = cca_line_bwd(*map(_to_col, (q, k, v, g, m, L, delta)), masked=True)
     row = cca_line_bwd(q, k, v, g, m, L, delta, masked=False)
     return tuple((_to_col(c) + r).to(t.dtype) for c, r, t in zip(col, row, (q, k, v)))
 
 
 class CrissCrossAttentionFn(torch.autograd.Function):
-    """Criss-cross attention with the kernels' backward, routed once per call
-    by :func:`uses_line_route`. Short lines: forward K1 → K2, saving
-    ``(q, k, v, out, m, L)``; backward ``delta = Σ_c out·g`` in plain torch
-    (as ``_cca_bwd`` does), then K3 → K4. Long lines: the line route, which
-    saves its f32 combine output for ``delta`` (the JAX legacy route's
-    residual) and returns it cast to v's dtype. Returns ``(out, m, L)``;
-    ``m`` and ``L`` are not differentiable. On CPU tensors every step takes
-    its plain version."""
+    """Criss-cross attention with the kernels' backward, each direction
+    routed as the JAX package routes it (:func:`uses_line_route`). Forward:
+    K1 → K2 or the line route; the residual is the route's ``out`` as
+    ``_cca_fwd`` saves it: bf16 after K1/K2, the f32 combine after the line
+    route (returned cast to v's dtype). Backward: ``delta = Σ_c out·g`` from
+    that residual in plain torch (as ``_cca_bwd`` does), then K3 → K4 or the
+    line route. Returns ``(out, m, L)``; ``m`` and ``L`` are not
+    differentiable. On CPU tensors every step takes its plain version."""
 
     @staticmethod
     def forward(ctx, q, k, v):
-        ctx.line = uses_line_route(q.shape[1], q.shape[2])
-        if ctx.line:
+        if _line_route_of("fwd", q, v):
             saved, m, L = cca_line_route_fwd(q, k, v)
             out = saved.to(v.dtype)
         else:
@@ -545,7 +654,7 @@ class CrissCrossAttentionFn(torch.autograd.Function):
         q, k, v, out, m, L = ctx.saved_tensors
         g = g.to(v.dtype).contiguous()
         delta = (g.float() * out.float()).sum(dim=-1)
-        if ctx.line:
+        if _line_route_of("bwd", q, v):
             return cca_line_route_bwd(q, k, v, g, m, L, delta)
         return cca_bwd_row(q, k, v, g, m, L, delta, *cca_bwd_col(q, k, v, g, m, L, delta))
 

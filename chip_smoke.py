@@ -8,9 +8,9 @@ capability 9.0 and ``nvcc``. It imports nothing of JAX. Phases, in order; any
 failure raises and exits non-zero:
 
 1. card: the ``nvidia-smi`` name and power limit; capability (9, 0) required;
-2. build: the five CUDA libraries of ``ccnet_tpu_torch/csrc`` (``cca_fwd``,
-   ``cca_bwd``, ``upsampled_ce``, ``cca_lines``, ``probes``), one ``nvcc``
-   each, started together;
+2. build: the six CUDA libraries of ``ccnet_tpu_torch/csrc`` (``cca_fwd``,
+   ``cca_bwd``, ``upsampled_ce``, ``cca_lines``, ``cca_lines_tc``,
+   ``probes``), one ``nvcc`` each, started together;
 3. kernels vs plain: K1 ``cca_fwd_col`` and K2 ``cca_fwd_row`` against their
    plain-torch versions, and the routed op against the joint-softmax
    oracle, at the sliding-tile, whole-image and edge shapes, in f32 (TF32
@@ -32,9 +32,15 @@ failure raises and exits non-zero:
    autograd, int32 and uint8 labels; times at (8, 97, 97, 19) → 769²;
 6. line kernels vs plain: K7a ``cca_line_fwd`` and K7b ``cca_line_bwd`` on
    both paths as the line route calls them, and the routed Function's
-   output and grads, at the whole-image shapes of scales 1.0 and 1.75 and
-   edge shapes, f32 and bf16; times at the long shapes against the plain
-   versions, the plain op and K1–K4 forced at the same shape;
+   output and grads (each direction routed as the JAX package routes it),
+   at the whole-image shapes of scales 1.0 and 1.75 and edge shapes, f32
+   (the CUDA-core kernels against the f32 plain versions) and bf16 (the
+   tensor-core kernels against the plain versions fed the same bf16
+   tensors, which round p and de where the kernels do; K7a's o bit-equal
+   to theirs but for a few flipped roundings, which the plain version that
+   keeps p in f32 is not), plus edge lines of N = 16, 17, 65, 128 and
+   463-465 in bf16; times at the long shapes of both designs, the rounding
+   plain versions, the plain op and K1–K4 forced at the same shape;
    (3, 4 and 6 also time the one-call yardstick of the attention,
    ``F.scaled_dot_product_attention`` with a row-or-column mask on
    ``(B, 1, H·W, C)``, forward and forward + backward, on every backend
@@ -47,11 +53,13 @@ failure raises and exits non-zero:
    launches each kernel;
 8. full model: CCNet-R101 R=2 bf16 with seeded random weights (``gamma`` =
    0.5, so the attention moves the logits), kernel route vs plain route on
-   one (8, 3, 769, 769) batch, and both routes' eval forward timed in turns
-   in this process; the weights go to a ``.pth``;
+   one (8, 3, 769, 769) batch (K1/K2) and on one (1, 3, 1024, 2048) image
+   (K7a), and both routes' eval forward timed in turns in this process;
+   the weights go to a ``.pth``;
 9. train step: one OHEM+DSN ``train_step`` from that ``.pth`` with the
    kernels (CCA and loss) and one with the plain versions: loss, CCA grads,
-   launch counts, peak memory; at batch 8 of 769² (K1–K6);
+   launch counts, peak memory, then steps of the two timed in turns; at
+   batch 8 of 769² (K1–K6);
 10. train main path: ``ccnet_tpu_torch.cli.train.main`` with ``--synthetic``,
     batch 8 of 769², OHEM, 4 steps from that ``.pth``; launch counts of
     K1–K6; the exported ``CS_scenes_4.pth`` loads strictly;
@@ -137,6 +145,11 @@ EVAL_AB_REPS = 6  # timed eval forwards of each CCA route, in turns
 # training), at scale 1.75, and edge shapes (N = 1 on either path)
 LINE_SHAPES = [(1, 129, 257, 64, 512), (1, 225, 449, 64, 512), (2, 9, 441, 8, 16),
                (1, 1, 300, 4, 8), (1, 300, 1, 4, 8)]
+# edge lines of the tensor-core K7a/K7b beyond LINE_SHAPES: N = 16, 17, 65,
+# 128 and 463-465 on either path, Cq 12 and 128, odd Cv
+LINE_TC_EDGE_SHAPES = [(2, 16, 17, 8, 16), (1, 65, 128, 64, 512), (1, 463, 5, 64, 512),
+                       (1, 3, 464, 16, 32), (2, 465, 3, 12, 21), (1, 33, 97, 128, 64)]
+TRAIN_AB_REPS = 3  # timed train steps of each route, in turns
 LOSS_SHAPES = [(8, 97, 97, 19, 8), (2, 5, 7, 4, 3), (1, 9, 9, 6, 4)]  # B, h, w, C, r
 NLL_TOL = 1e-5        # K5: max abs err of the f32 nll
 NLL_GRAD_TOL = 1e-4   # K6: max abs err over max |plain grad|
@@ -167,8 +180,8 @@ KERNELS = [
     ("cca_bwd_row", "cca_bwd.cu", "ccnet_tpu/ops/cc_attention_pallas.py:350"),
     ("upsampled_nll_fwd", "upsampled_ce.cu", "ccnet_tpu/ops/upsampled_ce.py:102"),
     ("upsampled_nll_bwd", "upsampled_ce.cu", "ccnet_tpu/ops/upsampled_ce.py:126"),
-    ("cca_line_fwd", "cca_lines.cu", "ccnet_tpu/ops/cc_attention_pallas.py:552"),
-    ("cca_line_bwd", "cca_lines.cu", "ccnet_tpu/ops/cc_attention_pallas.py:661"),
+    ("cca_line_fwd", "cca_lines_tc.cu", "ccnet_tpu/ops/cc_attention_pallas.py:552"),
+    ("cca_line_bwd", "cca_lines_tc.cu", "ccnet_tpu/ops/cc_attention_pallas.py:661"),
     ("mid_batch_dot", "probes.cu", "scripts/probe_mosaic.py:33"),
     ("swap_leading", "probes.cu", "scripts/probe_mosaic.py:55"),
     ("scale_ragged", "probes.cu", "scripts/probe_mosaic.py:70"),
@@ -205,7 +218,7 @@ def phase_card() -> str:
     return smi
 
 
-LIBRARIES = ("cca_fwd", "cca_bwd", "upsampled_ce", "cca_lines", "probes")
+LIBRARIES = ("cca_fwd", "cca_bwd", "upsampled_ce", "cca_lines", "cca_lines_tc", "probes")
 
 
 def phase_build() -> None:
@@ -432,13 +445,13 @@ def phase_kernels() -> dict:
             row = K.cca_fwd_row(q, k, v, *col)  # K2 fed K1's own outputs
             out, m, L = K.criss_cross_attention_cuda(q, k, v)
             torch.cuda.synchronize()
-            line = K.uses_line_route(shape[1], shape[2])  # the op took K7a, not K1/K2
-            calls = 2 - line
             moved = {n: K.LAUNCHES[n] - before[n] for n in K.LAUNCHES}
-            if moved != {**{n: 0 for n in K.LAUNCHES}, "cca_fwd_col": calls,
-                         "cca_fwd_row": calls, "cca_fwd_col_tc": calls * tc,
-                         "cca_fwd_row_tc": calls * tc, "cca_line_fwd": 2 * line}:
-                raise RuntimeError(f"K1/K2 at {shape} {dtype} launched {moved}")
+            want = _cca_want(shape, dtype, fwd=1)  # the op's launches, K1/K2 or K7a
+            for name in ("cca_fwd_col", "cca_fwd_row"):  # and the wrappers' own
+                want[name] += 1
+                want[f"{name}_tc"] += tc
+            if moved != want:
+                raise RuntimeError(f"K1/K2 at {shape} {dtype} launched {moved}, not {want}")
             ins = (q, k, v) if tc else (q32, k32, v32)
             want_col, want_row = K.cca_fwd_col_plain(*ins), K.cca_fwd_row_plain(*ins, *col)
             checks = {
@@ -637,51 +650,87 @@ def phase_bwd_kernels() -> dict:
 LINE_PATHS = (("col", True, lambda t: t.transpose(1, 2)), ("row", False, lambda t: t))
 
 
+def _line_check(shape, dtype, errs: dict, flips: dict) -> None:
+    """K7a then K7b on both paths vs their plain versions, from the joint
+    stats of the route's own combine. bf16 takes the tensor-core design and
+    its plain versions the same bf16 tensors, rounding p and de where the
+    kernels do (K7a's o must also be bit-equal to theirs but for at most
+    TC_FLIPS of its elements, and the plain version that keeps p in f32
+    must differ in more on lines of 64 and longer); f32 the CUDA-core
+    design against the f32 plain versions."""
+    from ccnet_tpu_torch.ops import cc_attention_cuda as K
+
+    tc = dtype == torch.bfloat16
+    tol = TC_TOL if tc else BWD_TOL[dtype]
+    round_to = torch.bfloat16 if tc else None
+    q, k, v = _inputs(shape, dtype, seed=sum(shape) + 3)
+    g = _inputs(shape, dtype, seed=sum(shape) + 4)[2]
+    with torch.no_grad():
+        before = dict(K.LAUNCHES)
+        fwd = {}
+        for path, masked, view in LINE_PATHS:
+            fwd[path] = K.cca_line_fwd(view(q), view(k), view(v), masked)
+            want = K.cca_line_fwd_plain(view(q), view(k), view(v), masked, round_to=round_to)
+            want = (want[0].to(v.dtype), *want[1:])
+            for name, got, ref in zip(("o", "m", "l"), fwd[path], want):
+                errs[f"K7a.{path}.{name}"] = _rel_check(
+                    f"K7a {path} {name} at {shape} {dtype}", got, ref, tol)
+            if tc:
+                flips[f"K7a.{path}.o"] = _flipped(fwd[path][0], want[0])
+                unrounded = K.cca_line_fwd_plain(*(view(t).float() for t in (q, k, v)), masked)[0]
+                flips[f"unrounded.{path}.o"] = _flipped(unrounded.to(v.dtype), want[0])
+                if flips[f"K7a.{path}.o"] > TC_FLIPS:
+                    raise AssertionError(f"K7a {path} at {shape}: {flips}, over {TC_FLIPS:g}")
+                if view(q).shape[2] >= 64 and flips[f"unrounded.{path}.o"] <= TC_FLIPS:
+                    raise AssertionError(f"K7a {path} at {shape}: the unrounded plain version is "
+                                         f"within {TC_FLIPS:g} of the rounding one: {flips}")
+        o_c, m_c, l_c = (K._to_col(t) for t in fwd["col"])
+        out, m, L = K._combine(o_c.float(), m_c, l_c, fwd["row"][0].float(), *fwd["row"][1:])
+        delta = (g.float() * out).sum(dim=-1)
+        for path, masked, view in LINE_PATHS:
+            args = [view(t) for t in (q, k, v, g, m, L, delta)]
+            got = K.cca_line_bwd(*args, masked)
+            want = K.cca_line_bwd_plain(*args, masked, round_to=round_to)
+            for name, a, b in zip(("dq", "dk", "dv"), got, want):
+                errs[f"K7b.{path}.{name}"] = _rel_check(f"K7b {path} {name} at {shape} {dtype}",
+                                                        a, b.to(a.dtype), tol)
+                if tc:
+                    flips[f"K7b.{path}.{name}"] = _flipped(a, b.to(a.dtype))
+        torch.cuda.synchronize()
+        moved = {n: K.LAUNCHES[n] - before[n] for n in K.LAUNCHES}
+        if moved != {**{n: 0 for n in K.LAUNCHES}, "cca_line_fwd": 2, "cca_line_bwd": 2,
+                     "cca_line_fwd_tc": 2 * tc, "cca_line_bwd_tc": 2 * tc}:
+            raise RuntimeError(f"K7a/K7b at {shape} {dtype} launched {moved}")
+    if shape[1] == 1 and not (torch.all(fwd["col"][1] == -1e9) and torch.all(fwd["col"][2] == 1.0)
+                              and torch.equal(fwd["col"][0].to(v.dtype), K._to_col(v))):
+        raise AssertionError(f"K7a at {shape} {dtype}: the all-self-slot column is not "
+                             f"(o = v, m = -1e9, l = 1)")
+
+
 def phase_line_kernels() -> dict:
     """K7a/K7b against their plain versions on both paths as the line route
     calls them (columns through the transposed view, masked; rows), and the
     routed Function's output and grads against torch.autograd of the plain
-    op, at every line shape in f32 and bf16. Then CUDA-event times at the
-    long shapes: each kernel vs its plain version, and the route's forward
+    op, at every line shape in f32 and bf16 (and the tensor-core design's
+    edge lines in bf16). Then CUDA-event times at the long shapes: each
+    kernel in both designs vs its plain version, and the route's forward
     and forward + backward vs K1–K4 forced at the same shape and vs the
-    plain op (the routing evidence)."""
+    plain op."""
     from ccnet_tpu_torch.ops import cc_attention as plain
     from ccnet_tpu_torch.ops import cc_attention_cuda as K
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     report = {"cca_line_fwd": {"max_abs_err": 0.0}, "cca_line_bwd": {"max_abs_err": 0.0}}
-    for dtype in (torch.float32, torch.bfloat16):
-        tol = BWD_TOL[dtype]
-        for shape in LINE_SHAPES:
-            if not K.uses_line_route(shape[1], shape[2]):
-                raise AssertionError(f"{shape} does not take the line route")
+    cases = [(torch.float32, s) for s in LINE_SHAPES]
+    cases += [(torch.bfloat16, s) for s in LINE_SHAPES + LINE_TC_EDGE_SHAPES]
+    for dtype, shape in cases:
+        errs, flips = {}, {}
+        _line_check(shape, dtype, errs, flips)
+        if shape in LINE_SHAPES:  # the routed Function vs torch.autograd of the plain op in f32
             q, k, v = _inputs(shape, dtype, seed=sum(shape) + 3)
             g = _inputs(shape, dtype, seed=sum(shape) + 4)[2]
             f32 = [t.float() for t in (q, k, v, g)]
-            errs = {}
-            with torch.no_grad():
-                before = dict(K.LAUNCHES)
-                fwd = {}
-                for path, masked, view in LINE_PATHS:
-                    fwd[path] = K.cca_line_fwd(view(q), view(k), view(v), masked)
-                    want = K.cca_line_fwd_plain(*(view(t) for t in f32[:3]), masked)
-                    for name, got, ref in zip(("o", "m", "l"), fwd[path], want):
-                        errs[f"K7a.{path}.{name}"] = _rel_check(
-                            f"K7a {path} {name} at {shape} {dtype}", got, ref, tol)
-                out, m, L = K._combine(*map(K._to_col, fwd["col"]), *fwd["row"])
-                delta = (f32[3] * out).sum(dim=-1)
-                for path, masked, view in LINE_PATHS:
-                    got = K.cca_line_bwd(*(view(t) for t in (q, k, v, g, m, L, delta)), masked)
-                    want = K.cca_line_bwd_plain(*(view(t) for t in (*f32, m, L, delta)), masked)
-                    for name, a, b in zip(("dq", "dk", "dv"), got, want):
-                        errs[f"K7b.{path}.{name}"] = _rel_check(
-                            f"K7b {path} {name} at {shape} {dtype}", a, b, tol)
-                torch.cuda.synchronize()
-                if (K.LAUNCHES["cca_line_fwd"] != before["cca_line_fwd"] + 2
-                        or K.LAUNCHES["cca_line_bwd"] != before["cca_line_bwd"] + 2):
-                    raise RuntimeError(f"launch counts did not advance: {before} -> {K.LAUNCHES}")
-            # the routed Function vs torch.autograd of the plain op in f32
             before = dict(K.LAUNCHES)
             leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
             out_fn = K.criss_cross_attention_cuda(*leaves)[0]
@@ -691,17 +740,24 @@ def phase_line_kernels() -> dict:
             grads_p = torch.autograd.grad(out_p, leaves32, f32[3])
             torch.cuda.synchronize()
             moved = {n: K.LAUNCHES[n] - before[n] for n in K.LAUNCHES}
-            if moved != {**{n: 0 for n in K.LAUNCHES}, "cca_line_fwd": 2, "cca_line_bwd": 2}:
-                raise AssertionError(f"the Function at {shape} launched {moved}")
+            want = _cca_want(shape, dtype, fwd=1, bwd=1)
+            if moved != want:
+                raise AssertionError(f"the Function at {shape} {dtype} launched {moved}, "
+                                     f"not {want}")
+            tol = BWD_TOL[dtype]
             errs["fn.out"] = _rel_check(f"Function out at {shape} {dtype}", out_fn, out_p, tol)
             for name, a, b in zip(("dq", "dk", "dv"), grads, grads_p):
                 errs[f"fn.{name}"] = _rel_check(f"Function {name} at {shape} {dtype}", a, b, tol)
-            if shape == LINE_SHAPES[0] and dtype == torch.bfloat16:
-                for kern, key in (("K7a", "cca_line_fwd"), ("K7b", "cca_line_bwd")):
-                    report[key]["max_abs_err"] = max(e for n, e in errs.items()
-                                                     if n.startswith(kern))
-            log(f"[lines] {str(dtype)[6:]} {shape}: ok (tol {tol:g} x scale) "
-                + " ".join(f"{n}={e:.2e}" for n, e in errs.items()))
+            del q, k, v, g, f32, leaves, out_fn, grads, leaves32, out_p, grads_p
+        if shape == LINE_SHAPES[0] and dtype == torch.bfloat16:
+            for kern, key in (("K7a", "cca_line_fwd"), ("K7b", "cca_line_bwd")):
+                report[key]["max_abs_err"] = max(e for n, e in errs.items() if n.startswith(kern))
+        log(f"[lines] {str(dtype)[6:]} {shape} "
+            f"{'tensor cores' if dtype == torch.bfloat16 else 'CUDA cores'}: ok (kernels tol "
+            f"{TC_TOL if dtype == torch.bfloat16 else BWD_TOL[dtype]:g} x scale, Function "
+            f"{BWD_TOL[dtype]:g}) " + " ".join(f"{n}={e:.2e}" for n, e in errs.items())
+            + (" flipped " + " ".join(f"{n}={x:.2e}" for n, x in flips.items()) if flips else ""))
+        torch.cuda.empty_cache()
 
     def line_fwd(fn):
         return lambda q, k, v: [fn(view(q), view(k), view(v), masked)
@@ -720,6 +776,8 @@ def phase_line_kernels() -> dict:
         return lambda q, k, v, g: torch.autograd.grad(fn(q, k, v), (q, k, v), g)
 
     bf16 = torch.bfloat16
+    cuda_core = {"design": "cuda_core"}
+    rounding = {"round_to": bf16}
     for shape in LINE_SHAPES[:2]:  # the long shapes, bf16
         q, k, v = _inputs(shape, bf16, seed=1)
         g = _inputs(shape, bf16, seed=2)[2]
@@ -727,10 +785,28 @@ def phase_line_kernels() -> dict:
             out, m, L = K.criss_cross_attention_cuda(q, k, v)
             delta = (g.float() * out.float()).sum(dim=-1)
             stats = (q, k, v, g, m, L, delta)
+            if shape == LINE_SHAPES[0]:  # the CUDA-core design forced here: the f32 function
+                f32 = [t.float() for t in stats[:4]]
+                for kern, got_t, want_t in (
+                        ("K7a", line_fwd(lambda *a: K.cca_line_fwd(*a, **cuda_core))(q, k, v),
+                         line_fwd(K.cca_line_fwd_plain)(*f32[:3])),
+                        ("K7b", line_bwd(lambda *a: K.cca_line_bwd(*a, **cuda_core))(*stats),
+                         line_bwd(K.cca_line_bwd_plain)(*f32, m, L, delta))):
+                    for p, (got_p, want_p) in enumerate(zip(got_t, want_t)):
+                        for i, (got, want) in enumerate(zip(got_p, want_p)):
+                            _rel_check(f"{kern} CUDA-core design path {p} output {i} at {shape}",
+                                       got, want, BWD_TOL[bf16])
+                del f32, got_t, want_t
             t = {"K7a": _time_ms(line_fwd(K.cca_line_fwd), q, k, v),
-                 "K7a plain": _time_ms(line_fwd(K.cca_line_fwd_plain), q, k, v),
+                 "K7a CUDA-core": _time_ms(line_fwd(
+                     lambda *a: K.cca_line_fwd(*a, **cuda_core)), q, k, v),
+                 "K7a plain": _time_ms(line_fwd(
+                     lambda *a: K.cca_line_fwd_plain(*a, **rounding)), q, k, v),
                  "K7b": _time_ms(line_bwd(K.cca_line_bwd), *stats),
-                 "K7b plain": _time_ms(line_bwd(K.cca_line_bwd_plain), *stats),
+                 "K7b CUDA-core": _time_ms(line_bwd(
+                     lambda *a: K.cca_line_bwd(*a, **cuda_core)), *stats),
+                 "K7b plain": _time_ms(line_bwd(
+                     lambda *a: K.cca_line_bwd_plain(*a, **rounding)), *stats),
                  "route fwd": _time_ms(K.cca_line_route_fwd, q, k, v),
                  "K1+K2 fwd": _time_ms(lambda *a: K.cca_fwd_row(*a, *K.cca_fwd_col(*a)), q, k, v),
                  "plain fwd": _time_ms(plain.criss_cross_attention, q, k, v),
@@ -739,32 +815,42 @@ def phase_line_kernels() -> dict:
         t["route fwd+bwd"] = _time_ms(fwd_bwd(lambda *a: K.criss_cross_attention_cuda(*a)[0]),
                                       *leaves, g)
         t["plain fwd+bwd"] = _time_ms(fwd_bwd(plain.criss_cross_attention), *leaves, g)
-        with torch.no_grad():  # both paths of one call, as timed; o and the
-            # grads counted in the value dtype, as the TPU function writes them
-            fwd_out = [e for o, m_, l_ in line_fwd(K.cca_line_fwd)(q, k, v)
-                       for e in ((o, bf16), m_, l_)]
-            bwd_out = [(e, bf16) for grads in line_bwd(K.cca_line_bwd)(*stats) for e in grads]
+        with torch.no_grad():  # both paths of one call, as timed
+            fwd_out = [e for o, m_, l_ in line_fwd(K.cca_line_fwd)(q, k, v) for e in (o, m_, l_)]
+            bwd_out = [e for grads in line_bwd(K.cca_line_bwd)(*stats) for e in grads]
         bounds = {"K7a": _bound((q, k, v), fwd_out,
                                 sum(_cca_flops(shape, True, p) for p in ("col", "row")), bf16),
                   "K7b": _bound(stats, bwd_out,
                                 sum(_cca_flops(shape, False, p) for p in ("col", "row")), bf16)}
+        # K7b's dq parts: ceil(N / 64) x pixels x Cq f32 per path, written and read back
+        B, H, W, Cq, _ = shape
+        dq_part_mb = sum(-(-n // 64) for n in (H, W)) * B * H * W * Cq * 4 * 2 / 1e6
         del fwd_out, bwd_out, out, m, L, delta, leaves, stats
         torch.cuda.empty_cache()
         if shape == LINE_SHAPES[0]:  # the yardstick's row-or-column mask is 1.1 GB here
             fwd_sdpa, bwd_sdpa = _sdpa_yardstick(q, k, v), _sdpa_yardstick(q, k, v, g)
             _log_sdpa("lines fwd", shape, fwd_sdpa)
             _log_sdpa("lines fwd+bwd", shape, bwd_sdpa)
-            report["cca_line_fwd"].update(ms=t["K7a"], plain_ms=t["K7a plain"],
-                                          library_ms=fwd_sdpa[0], **bounds["K7a"])
-            report["cca_line_bwd"].update(ms=t["K7b"], plain_ms=t["K7b plain"],
-                                          library_ms=bwd_sdpa[0], **bounds["K7b"])
+            design = ("tensor cores (mma.sync m16n8k16 bf16), keys tiled by 64, p rounded to bf16 "
+                      "after the line's max")
+            for kern, key, sdpa in (("K7a", "cca_line_fwd", fwd_sdpa),
+                                    ("K7b", "cca_line_bwd", bwd_sdpa)):
+                r = report[key]
+                r.update(ms=t[kern], earlier_ms=t[f"{kern} CUDA-core"], plain_ms=t[f"{kern} plain"],
+                         library_ms=sdpa[0], **bounds[kern])
+                r.update(design=design, share=r["bound_ms"] / r["ms"],
+                         tflops=r["bound_flops"] / r["ms"] / 1e9)
         else:
             log(f"[lines] library yardstick at {shape}: not run, its (H·W)² bool mask would "
                 f"take {(shape[1] * shape[2]) ** 2 / 1e9:.1f} GB")
         log(f"[lines] times at {shape} bf16, ms (median of {TIMING_REPS}; K7a/K7b: both paths "
-            f"of one call): " + ", ".join(f"{n} {ms:.4f}" for n, ms in t.items())
-            + "; bounds " + ", ".join(f"{n} {b['bound_ms']:.4f} ms by {b['bound_by']}"
-                                      for n, b in bounds.items()))
+            f"of one call, two launches; plain: the rounding plain versions on the bf16 tensors): "
+            + ", ".join(f"{n} {ms:.4f}" for n, ms in t.items())
+            + "; bounds " + ", ".join(
+                f"{n} {b['bound_ms']:.4f} ms by {b['bound_by']} ({b['bound_ms'] / t[n]:.1%} of "
+                f"it; {b['bound_bytes'] / 1e6:.1f} MB, port {b['port_bytes'] / 1e6:.1f} MB, "
+                f"{b['bound_flops'] / 1e9:.1f} GFLOP)" for n, b in bounds.items())
+            + f"; K7b also writes and reads {dq_part_mb:.1f} MB of dq parts")
     return report
 
 
@@ -944,27 +1030,22 @@ def randomize_(model: torch.nn.Module, seed: int = 0) -> None:
                 t.add_(torch.from_numpy(rng.randn(*t.shape).astype(np.float32) * 0.1).to(t))
 
 
-def phase_model(pth: str) -> None:
-    from ccnet_tpu_torch.models import build_model
+def _eval_ab(model, x, tag: str, want: dict) -> None:
+    """The eval forward of ``model`` on ``x`` through each CCA route: the
+    kernel route's main logits against the plain route's, the kernel
+    route's launches against ``want``, then both routes timed in turns
+    (kernel, plain, plain, kernel, ...) after one untimed call of each."""
     from ccnet_tpu_torch.ops import cc_attention_cuda as K
 
-    torch.backends.cudnn.allow_tf32 = True  # the bf16 model's default setting
-    model = build_model("ccnet", num_classes=19, recurrence=2, depth=101,
-                        dtype=torch.bfloat16, device="cuda")
-    randomize_(model, seed=0)
-    torch.save(model.state_dict(), pth)
-    rng = np.random.RandomState(2)
-    x = torch.from_numpy((rng.rand(8, 3, 769, 769) * 255.0 - 120.0).astype(np.float32)).cuda()
     with torch.inference_mode():
-        before = K.LAUNCHES["cca_fwd_col"]
+        before = dict(K.LAUNCHES)
         model.set_cca_impl("kernel")
         main_k = model(x)["main"]
-        if K.LAUNCHES["cca_fwd_col"] != before + 2:
-            raise RuntimeError("impl='kernel' did not launch the kernels")
+        moved = {n: K.LAUNCHES[n] - before[n] for n in K.LAUNCHES}
+        if moved != want:
+            raise RuntimeError(f"{tag}: impl='kernel' launched {moved}, not {want}")
         model.set_cca_impl("torch")
         main_t = model(x)["main"]
-        # the eval forward through each CCA route, in turns (kernel, plain,
-        # plain, kernel, ...), after one untimed call of each
         times = {"kernel": [], "torch": []}
         for rep in range(EVAL_AB_REPS + 1):
             for impl in ("kernel", "torch") if rep % 2 else ("torch", "kernel"):
@@ -978,21 +1059,43 @@ def phase_model(pth: str) -> None:
                     times[impl].append(start.elapsed_time(end))
         model.set_cca_impl("auto")
     torch.cuda.synchronize()
-    if tuple(main_k.shape) != (8, 19, 97, 97) or not torch.isfinite(main_k).all():
-        raise AssertionError(f"kernel-route logits malformed: {tuple(main_k.shape)}")
+    B, _, H, W = x.shape
+    if (tuple(main_k.shape) != (B, 19, _features(H), _features(W))
+            or not torch.isfinite(main_k).all()):
+        raise AssertionError(f"{tag}: kernel-route logits malformed: {tuple(main_k.shape)}")
     err, scale = _err(main_k, main_t)
     agree = (main_k.argmax(1) == main_t.argmax(1)).float().mean().item()
-    log(f"[model] R101 R=2 bf16 (8,3,769,769), gamma=0.5: kernel vs plain main logits "
-        f"max abs err {err:.3e} (scale {scale:.3g}, tol {MODEL_TOL:g} x scale), "
-        f"argmax agreement {agree:.6f} (>= {MODEL_ARGMAX})")
-    log(f"[model] R101 R=2 bf16 eval forward (8,3,769,769), the two CCA routes in turns in one "
-        f"process: impl='kernel' median {np.median(times['kernel']):.4f} ms, impl='torch' "
-        f"median {np.median(times['torch']):.4f} ms (CUDA events, {EVAL_AB_REPS} each; "
-        f"kernel {' '.join(f'{t:.4f}' for t in times['kernel'])}; torch "
+    log(f"[model] {tag}, gamma=0.5: kernel vs plain main logits max abs err {err:.3e} (scale "
+        f"{scale:.3g}, tol {MODEL_TOL:g} x scale), argmax agreement {agree:.6f} "
+        f"(>= {MODEL_ARGMAX})")
+    log(f"[model] {tag} eval forward, the two CCA routes in turns in one process: impl='kernel' "
+        f"median {np.median(times['kernel']):.4f} ms, impl='torch' median "
+        f"{np.median(times['torch']):.4f} ms (CUDA events, {EVAL_AB_REPS} each; kernel "
+        f"{' '.join(f'{t:.4f}' for t in times['kernel'])}; torch "
         f"{' '.join(f'{t:.4f}' for t in times['torch'])})")
     if not err <= MODEL_TOL * scale or agree < MODEL_ARGMAX:
-        raise AssertionError("full-model kernel route disagrees with the plain route")
-    del model, main_k, main_t, x
+        raise AssertionError(f"{tag}: the kernel route disagrees with the plain route")
+
+
+def phase_model(pth: str) -> None:
+    """R101 R=2 bf16 with seeded random weights (saved to ``pth``): the eval
+    forward's kernel route against its plain route on 8 crops of 769²
+    (K1/K2) and on one whole 1024×2048 image (K7a, the line route)."""
+    from ccnet_tpu_torch.models import build_model
+
+    torch.backends.cudnn.allow_tf32 = True  # the bf16 model's default setting
+    model = build_model("ccnet", num_classes=19, recurrence=2, depth=101,
+                        dtype=torch.bfloat16, device="cuda")
+    randomize_(model, seed=0)
+    torch.save(model.state_dict(), pth)
+    rng = np.random.RandomState(2)
+    for batch, hw in ((8, (CROP, CROP)), (1, EVAL_HW)):
+        x = torch.from_numpy((rng.rand(batch, 3, *hw) * 255.0 - 120.0).astype(np.float32)).cuda()
+        want = _cca_want((batch, *map(_features, hw), 64, 512), torch.bfloat16,
+                         fwd=2)  # R=2 recurrences
+        _eval_ab(model, x, f"R101 R=2 bf16 ({batch},3,{hw[0]},{hw[1]})", want)
+        del x
+    del model
     torch.cuda.empty_cache()
 
 
@@ -1014,20 +1117,43 @@ def _counts() -> dict:
     return {n: c for counts in _launch_counts() for n, c in counts.items()}
 
 
-def _want(hw, fwd: int, bwd: int = 0, loss: int = 0) -> dict:
-    """The launch counts of ``fwd`` forward and ``bwd`` backward CCA calls on
-    the OS-8 features of an ``hw`` input (one launch of each of K1–K4 per
-    call, or one of K7a/K7b per path and
-    call on the line route) and ``loss`` calls of each of K5/K6. K1–K4
-    launches are all on the tensor-core design."""
+def _cca_want(shape, dtype, fwd: int = 0, bwd: int = 0) -> dict:
+    """The attention kernels' launch counts of ``fwd`` forward and ``bwd``
+    backward calls of the routed Function on ``(B, H, W, Cq, Cv)`` features
+    of ``dtype``: each direction routed as the JAX package routes it
+    (``uses_line_route``), one launch of each of K1/K2 (K3/K4) per call, or
+    one of K7a (K7b) per path and call on the line route; bf16 launches on
+    the tensor cores (K1–K4 on lines of at most 128)."""
     from ccnet_tpu_torch.ops import cc_attention_cuda as K
 
+    _, H, W, Cq, Cv = shape
+    bf16 = dtype == torch.bfloat16
+    tc = bf16 and max(H, W) <= K.LONG_LINE
+    want = {n: 0 for n in K.LAUNCHES}
+    for d, n in (("fwd", fwd), ("bwd", bwd)):
+        if K.uses_line_route(d, H, W, Cq, Cv, dtype):
+            want.update({f"cca_line_{d}": 2 * n, f"cca_line_{d}_tc": 2 * n * bf16})
+        else:
+            for path in ("col", "row"):
+                want.update({f"cca_{d}_{path}": n, f"cca_{d}_{path}_tc": n * tc})
+    return want
+
+
+def _features(n: int) -> int:
+    """The model's output-stride-8 feature length of an ``n``-pixel side:
+    the stem's stride-2 3x3 convolution, the ceil-mode 3x3 max pool, and
+    layer2's stride-2 3x3 convolution (769 -> 97, 1024 -> 129, 2048 -> 257)."""
+    a = (n + 1) // 2
+    b = -(-(a - 1) // 2) + 1
+    return (b + 1) // 2
+
+
+def _want(hw, fwd: int, bwd: int = 0, loss: int = 0) -> dict:
+    """The launch counts of ``fwd`` forward and ``bwd`` backward CCA calls of
+    the bf16 model on the OS-8 features of an ``hw`` input
+    (:func:`_cca_want`) and ``loss`` calls of each of K5/K6."""
     want = {n: 0 for n in _counts()}
-    if K.uses_line_route(*((n - 1) // 8 + 1 for n in hw)):
-        want.update(cca_line_fwd=2 * fwd, cca_line_bwd=2 * bwd)
-    else:  # the models here are bf16: every K1–K4 launch takes the tensor cores
-        want.update(cca_fwd_col=fwd, cca_fwd_row=fwd, cca_fwd_col_tc=fwd, cca_fwd_row_tc=fwd,
-                    cca_bwd_col=bwd, cca_bwd_row=bwd, cca_bwd_col_tc=bwd, cca_bwd_row_tc=bwd)
+    want.update(_cca_want((1, *map(_features, hw), 64, 512), torch.bfloat16, fwd, bwd))
     want.update(upsampled_nll_fwd=loss, upsampled_nll_bwd=loss)
     return want
 
@@ -1092,7 +1218,8 @@ def phase_train_step(pth: str, batch: int, hw, model_name: str = "ccnet",
     """One train step from the same state through the kernels and through
     the plain versions: the loss and the grads agree (CCNet: the CCA
     grads; PSPNet/DeepLabv3, whose kernels are K5/K6 alone: the
-    classifiers'). ``profile``: also one kernel-route step under
+    classifiers'); then TRAIN_AB_REPS more steps of each from its state,
+    timed in turns. ``profile``: also one kernel-route step under
     :func:`_top_kernels`."""
     from ccnet_tpu_torch.losses import build_criterion
     from ccnet_tpu_torch.models import build_model
@@ -1103,8 +1230,11 @@ def phase_train_step(pth: str, batch: int, hw, model_name: str = "ccnet",
     x, y = _train_batch(3, batch, hw)
     ccnet = model_name == "ccnet"
     grads = CCA_GRADS if ccnet else HEAD_GRADS
-    runs = {}
+    runs, routes = {}, {}
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
     for impl in ("kernel", "torch"):
+        held = torch.cuda.memory_allocated() - base  # the other route's model and state
         model = build_model(model_name, num_classes=19, recurrence=2, depth=DEPTH,
                             dtype=torch.bfloat16, impl=impl, drop_rate=0.0, device="cuda")
         load_pth(pth, model, strict=True)
@@ -1115,21 +1245,30 @@ def phase_train_step(pth: str, batch: int, hw, model_name: str = "ccnet",
         torch.cuda.reset_peak_memory_stats()
         loss = step(state, x, y)["loss"].item()
         runs[impl] = {"loss": loss, "launches": _counts(),
-                      "peak": torch.cuda.max_memory_allocated(),
+                      "peak": torch.cuda.max_memory_allocated() - held,
                       "grads": {n: p.grad.float().clone() for n, p in model.named_parameters()
                                 if n in grads}}
-        # the time of a second step (the first one paid for cuDNN's set-up)
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        step(state, x, y)
-        end.record()
-        end.synchronize()
-        runs[impl]["s"] = start.elapsed_time(end) / 1000.0
-        if impl == "kernel" and profile:  # where the step's time goes
-            log(f"[train-step] {model_name} kernel route, one step under torch.profiler: "
-                + _top_kernels(lambda: step(state, x, y)))
-        del model, state
-        torch.cuda.empty_cache()
+        routes[impl] = (state, step)
+    # more steps of the two routes from their states, timed in turns (kernel,
+    # plain, plain, kernel, ...); the first step of each paid for cuDNN's set-up
+    times = {"kernel": [], "torch": []}
+    for rep in range(TRAIN_AB_REPS):
+        for impl in ("kernel", "torch") if rep % 2 == 0 else ("torch", "kernel"):
+            state, step = routes[impl]
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            step(state, x, y)
+            end.record()
+            end.synchronize()
+            times[impl].append(start.elapsed_time(end) / 1000.0)
+    for impl in runs:
+        runs[impl]["s"] = float(np.median(times[impl]))
+    if profile:  # where the step's time goes
+        state, step = routes["kernel"]
+        log(f"[train-step] {model_name} kernel route, one step under torch.profiler: "
+            + _top_kernels(lambda: step(state, x, y)))
+    del routes, state, step, model
+    torch.cuda.empty_cache()
     k, t = runs["kernel"], runs["torch"]
     # each CCA call once per recurrence (R=2), each loss kernel once per head
     want = _want(hw, 2 * ccnet, 2 * ccnet, 2)
@@ -1146,9 +1285,11 @@ def phase_train_step(pth: str, batch: int, hw, model_name: str = "ccnet",
         + " ".join(f"{n}={e:.2e}" for n, e in rel.items())
         + f" (tol {TRAIN_GRAD_RTOL:g}); launches {k['launches']}")
     log(f"[train-step] {tag}: peak memory kernel route {k['peak'] / 2**30:.2f} GiB, plain "
-        f"route {t['peak'] / 2**30:.2f} GiB (torch.cuda.max_memory_allocated); second step "
-        f"kernel route {k['s']:.4f} s ({batch / k['s']:.2f} crops/s), plain route "
-        f"{t['s']:.4f} s (CUDA events)")
+        f"route {t['peak'] / 2**30:.2f} GiB (torch.cuda.max_memory_allocated, less the other "
+        f"route's model and state); steps in turns: kernel route median {k['s']:.4f} s "
+        f"({batch / k['s']:.2f} crops/s; {' '.join(f'{v:.4f}' for v in times['kernel'])}), "
+        f"plain route {t['s']:.4f} s ({' '.join(f'{v:.4f}' for v in times['torch'])}) "
+        f"(CUDA events, {TRAIN_AB_REPS} each)")
     if not rel_loss <= TRAIN_LOSS_RTOL or not all(e <= TRAIN_GRAD_RTOL for e in rel.values()):
         raise AssertionError("train step: kernel route disagrees with the plain route")
     if not all(t["grads"][n].abs().max().item() > 0 for n in grads):
@@ -1317,7 +1458,7 @@ def main(argv=None) -> None:
         full_frame, _ = phase_train_main_path(pth, os.path.join(tmp, "snapshots_full"),
                                               FULL_FRAME_BATCH, FULL_FRAME, FULL_FRAME_STEPS)
         sliding = phase_main_path(trained, "sliding")
-        phase_main_path(trained, "whole")
+        whole = phase_main_path(trained, "whole")
         msflip = phase_main_path(trained, "msflip")
         for name in ("pspnet", "deeplabv3"):  # the heads without attention: K5/K6
             pth = os.path.join(tmp, f"{name}_r101_random.pth")
@@ -1326,13 +1467,17 @@ def main(argv=None) -> None:
             _, trained = phase_train_main_path(pth, os.path.join(tmp, f"snapshots_{name}"),
                                                TRAIN_BATCH, (CROP, CROP), HEAD_TRAIN_STEPS, name)
             phase_main_path(trained, "sliding-png", name)
-    # each kernel's launches in the main path that runs it: K1–K6 in the 769²
-    # cli.train run (K1/K2 plus the sliding evaluation's), K7a in the MS+flip
-    # evaluation, K7b in full-frame cli.train, P1–P5 in cli.probe
+    # each kernel's launches in the main paths that run it: K1–K6 in the 769²
+    # cli.train run (K1/K2 plus the sliding evaluation's), K7a in the --whole
+    # and MS+flip evaluations and full-frame cli.train, K7b in full-frame
+    # cli.train, P1–P5 in cli.probe
     for name in ("cca_fwd_col", "cca_fwd_row", "cca_fwd_col_tc", "cca_fwd_row_tc"):
         launches[name] += sliding[name]
-    launches.update(cca_line_fwd=msflip["cca_line_fwd"], cca_line_bwd=full_frame["cca_line_bwd"],
-                    **probe_launches)
+    for name in ("cca_line_fwd", "cca_line_fwd_tc"):
+        launches[name] = whole[name] + msflip[name] + full_frame[name]
+    for name in ("cca_line_bwd", "cca_line_bwd_tc"):
+        launches[name] = full_frame[name]
+    launches.update(probe_launches)
     kernels = [{"name": name, "route": "cuda", "source": f"ccnet_tpu_torch/csrc/{source}",
                 "replaces": replaces, "launches": launches[name],
                 **{key: report[name][key] for key in ("max_abs_err", "ms", "plain_ms",
@@ -1340,7 +1485,7 @@ def main(argv=None) -> None:
                 **{key: report[name][key] for key in ("design", "earlier_ms", "share", "tflops")
                    if key in report[name]}}
                for name, source, replaces in KERNELS]
-    for k in kernels:  # K1–K4: how many of the path's launches took the tensor cores
+    for k in kernels:  # K1–K4, K7a/K7b: how many of the path's launches took the tensor cores
         if f"{k['name']}_tc" in launches:
             k["launches_tensor_core"] = launches[f"{k['name']}_tc"]
     log("[summary] kernel: ms / bound ms (share of bound) / plain ms / library ms")

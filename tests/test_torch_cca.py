@@ -314,7 +314,8 @@ def test_bwd_design_routes_by_dtype_and_line_length():
            z(1, 5, 6, dt=torch.float32) + 1, z(1, 5, 6, dt=torch.float32)]
     assert K.kernel_design(t16[0]) == "tensor_core"
     assert all(c.dtype == torch.bfloat16 for c in K.cca_bwd_col(*t16, design="tensor_core"))
-    assert not K.uses_line_route(128, 128) and K.uses_line_route(129, 1)
+    assert K.kernel_design(z(1, 128, 128, 4)) == "tensor_core"
+    assert K.kernel_design(z(1, 129, 1, 4)) == "cuda_core"
     t = [z(1, 5, 6, 4, dt=torch.float32), z(1, 5, 6, 4, dt=torch.float32),
          z(1, 5, 6, 8, dt=torch.float32), z(1, 5, 6, 8, dt=torch.float32),
          z(1, 5, 6, dt=torch.float32), z(1, 5, 6, dt=torch.float32) + 1,
@@ -367,7 +368,7 @@ def test_cuda_module_imports_without_nvcc():
             "assert b._LIBS == {} and set(K.LAUNCHES) == {'cca_fwd_col', 'cca_fwd_row', "
             "'cca_fwd_col_tc', 'cca_fwd_row_tc', "
             "'cca_bwd_col', 'cca_bwd_row', 'cca_bwd_col_tc', 'cca_bwd_row_tc', "
-            "'cca_line_fwd', 'cca_line_bwd'} "
+            "'cca_line_fwd', 'cca_line_bwd', 'cca_line_fwd_tc', 'cca_line_bwd_tc'} "
             "and not any(K.LAUNCHES.values());"
             "assert U.LAUNCHES == {'upsampled_nll_fwd': 0, 'upsampled_nll_bwd': 0}")
     env = {k: v for k, v in os.environ.items() if k not in ("CUDA_HOME", "CUDA_PATH")}

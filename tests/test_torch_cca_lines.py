@@ -13,7 +13,9 @@ package's legacy route, on the CPU.
   op (interpret, 'highest', ``partitioned=False``: the partitioned
   wrapper's interpret body is the jnp oracle), forward and ``jax.grad``, at
   a shape both packages send down the line route;
-* ``uses_line_route`` at the model's feature shapes.
+* ``uses_line_route`` at the model's feature shapes (the bf16 rounding of
+  the route and the predicate against the JAX package's own decision are
+  in ``tests/test_torch_line_rounding.py``).
 
 Tolerances (f32): atol 2e-5 forward and 5e-5 grads, each with rtol 2e-5
 for the sums over up to 441 terms (``l``, ``L`` and the aggregates reach
@@ -149,10 +151,15 @@ def test_routed_op_takes_the_line_route_and_matches_pallas(monkeypatch):
     assert calls == {"fwd": 2, "bwd": 2}  # each path once, forward and backward
 
 
-@pytest.mark.parametrize("hw,line", [((97, 97), False), ((128, 128), False), ((97, 193), True),
+@pytest.mark.parametrize("hw,line", [((97, 97), False), ((128, 128), True), ((97, 193), True),
                                      ((129, 257), True), ((225, 449), True), ((129, 97), True)])
 def test_uses_line_route(hw, line):
-    assert K.uses_line_route(*hw) is line
+    """At the model's widths (Cq 64, Cv 512, bf16): ``line`` is the
+    backward's route, and the forward's but at (129, 97), where the column
+    kernel K1 still holds H = 129 (the forward leaves K1/K2 past H = 130 or
+    W = 122, the backward K3/K4 past H = 99 or W = 106)."""
+    assert K.uses_line_route("bwd", *hw) is line
+    assert K.uses_line_route("fwd", *hw) is (line and hw != (129, 97))
 
 
 def test_line_wrappers_refuse_bad_layouts():

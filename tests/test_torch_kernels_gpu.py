@@ -14,7 +14,8 @@ K7a/K7b); the tensor-core K1/K2 and K3/K4 against the plain versions fed
 the same bf16 tensors, which round p (and de), o_col, the output and the
 grads where the kernels do, at 1e-2 x scale (f32 sums in another order flip
 a rounding here and there; K1/K2's bf16 outputs also bit-equal but for at
-most 1 % of their elements);
+most 1 % of their elements); the tensor-core K7a/K7b likewise, at 2^-8 x
+scale (K7a's o bit-equal but for 0.1 %) at the small line shapes;
 the model at 5e-2 x scale with argmax agreement >= 99.5 % (bf16
 layers after CCA). The loss kernels: K5 at 1e-5 abs, K6 at 1e-4 x
 max|plain grad|.
@@ -71,13 +72,14 @@ def test_kernels_match_plain(cuda, shape, dtype):
         pairs += zip(K.cca_fwd_row(q, k, v, *col), K.cca_fwd_row_plain(q32, k32, v32, *col))
         pairs += zip(K.criss_cross_attention_cuda(q, k, v),
                      plain.criss_cross_attention_stats(q32, k32, v32))
-    line = K.uses_line_route(shape[1], shape[2])  # the op takes K7a there, not K1/K2
+    line = K.uses_line_route("fwd", *shape[1:], dtype=q.dtype)  # the op takes K7a, not K1/K2
     tc = K.kernel_design(q) == "tensor_core"  # f32 and the long shape: CUDA cores
     assert tc == (dtype == "bfloat16" and not line)
     calls = 2 - line  # the wrappers' and the op's, or the wrappers' alone
     assert K.LAUNCHES == {n: c + {"cca_fwd_col": calls, "cca_fwd_row": calls,
                                   "cca_fwd_col_tc": calls * tc, "cca_fwd_row_tc": calls * tc,
-                                  "cca_line_fwd": 2 * line}.get(n, 0)
+                                  "cca_line_fwd": 2 * line,
+                                  "cca_line_fwd_tc": 2 * line * (dtype == "bfloat16")}.get(n, 0)
                           for n, c in before.items()}
     for got, want in pairs:
         scale = max(1.0, want.abs().max().item())
@@ -239,7 +241,6 @@ def test_line_kernels_match_plain(cuda, shape, dtype):
     grads vs torch.autograd of the plain op in f32."""
     tol = {"float32": 1e-4, "bfloat16": 3e-2}[dtype]
     dt = getattr(torch, dtype)
-    assert K.uses_line_route(shape[1], shape[2])
     q, k, v = (torch.from_numpy(a).to(cuda, dt) for a in case(9, *shape))
     g = torch.from_numpy(case(10, *shape)[2]).to(cuda, dt)
     f32 = [t.float() for t in (q, k, v, g)]
@@ -253,7 +254,9 @@ def test_line_kernels_match_plain(cuda, shape, dtype):
                          K.cca_line_fwd_plain(*(view(t) for t in f32[:3]), masked))
             pairs += zip(K.cca_line_bwd(*(view(t) for t in (q, k, v, g, m, L, delta)), masked),
                          K.cca_line_bwd_plain(*(view(t) for t in (*f32, m, L, delta)), masked))
-        assert K.LAUNCHES == {n: c + {"cca_line_fwd": 4, "cca_line_bwd": 2}.get(n, 0)
+        tc = dtype == "bfloat16"  # every bf16 launch takes the tensor cores
+        assert K.LAUNCHES == {n: c + {"cca_line_fwd": 4, "cca_line_bwd": 2, "cca_line_fwd_tc": 4 * tc,
+                                      "cca_line_bwd_tc": 2 * tc}.get(n, 0)
                               for n, c in before.items()}
     leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
     out = K.criss_cross_attention_cuda(*leaves)[0]
@@ -262,6 +265,77 @@ def test_line_kernels_match_plain(cuda, shape, dtype):
     for got, want in pairs:
         scale = max(1.0, want.abs().max().item())
         assert (got.float() - want.float()).abs().max().item() <= tol * scale
+
+
+# the tensor-core K7a/K7b beyond LINE_SHAPES: lines of N = 16, 17, 65, 128
+# and 463-465 on either path, Cq 128 (dk's wide register tile), odd widths
+TC_LINE_SHAPES = LINE_SHAPES + [(2, 16, 17, 8, 16), (1, 65, 128, 64, 512), (1, 463, 5, 64, 512),
+                                (1, 3, 464, 16, 32), (2, 465, 3, 12, 21), (1, 33, 97, 128, 64)]
+# shapes small enough that the rounding plain versions and the kernels
+# should agree but for a handful of flipped roundings
+TC_LINE_SMALL = {(2, 9, 441, 8, 16), (1, 1, 300, 4, 8), (1, 300, 1, 4, 8), (2, 16, 17, 8, 16)}
+
+
+def _line_views(shape, cuda, seed):
+    q, k, v, g = (torch.from_numpy(a).to(cuda, torch.bfloat16)
+                  for a in (*case(seed, *shape), case(seed + 1, *shape)[2]))
+    return q, k, v, g
+
+
+@pytest.mark.parametrize("shape", TC_LINE_SHAPES)
+def test_tensor_core_line_fwd_matches_rounding_plain(cuda, shape):
+    """The tensor-core K7a on both paths vs its plain version on the same
+    bf16 tensors, rounding p before p·v and o to bf16 as the kernel and the
+    TPU kernel at the default precision do: within 1e-2 x scale, o bit-equal
+    but for at most 1 % of flipped roundings (0.1 % at the small shapes),
+    which the plain version that keeps p in f32 exceeds."""
+    q, k, v, _ = _line_views(shape, cuda, 15)
+    assert K.line_design(q) == "tensor_core"
+    small = shape in TC_LINE_SMALL
+    with torch.no_grad():
+        for masked, view in LINE_PATHS:
+            before = dict(K.LAUNCHES)
+            got = K.cca_line_fwd(view(q), view(k), view(v), masked)
+            assert K.LAUNCHES == {n: c + (n in ("cca_line_fwd", "cca_line_fwd_tc"))
+                                  for n, c in before.items()}
+            o, m, l = K.cca_line_fwd_plain(view(q), view(k), view(v), masked,
+                                           round_to=torch.bfloat16)
+            unrounded = K.cca_line_fwd_plain(*(view(t).float() for t in (q, k, v)), masked)[0]
+            assert got[0].dtype == torch.bfloat16 and got[0].shape == o.shape
+            assert _flipped(got[0], o.to(torch.bfloat16)) <= (1e-3 if small else 1e-2)
+            if view(q).shape[2] >= 64:  # lines long enough that p's rounding shows in o
+                assert _flipped(unrounded.to(torch.bfloat16), o.to(torch.bfloat16)) > 1e-2
+            for a, b in zip(got, (o, m, l)):
+                scale = max(1.0, b.abs().max().item())
+                assert (a.float() - b).abs().max().item() <= (2.0 ** -8 if small else 1e-2) * scale
+            if masked and shape[1] == 1:  # all self slot: o = v, m = -1e9, l = 1
+                assert torch.equal(got[0], view(v)) and torch.all(got[1] == plain.NEG_INF)
+                assert torch.all(got[2] == 1.0)
+
+
+@pytest.mark.parametrize("shape", TC_LINE_SHAPES)
+def test_tensor_core_line_bwd_matches_rounding_plain(cuda, shape):
+    """The tensor-core K7b on both paths vs its plain version on the same
+    bf16 tensors and joint stats, rounding p and de to bf16 and the grads to
+    bf16 as the kernel does: within 1e-2 x scale (2^-8 at the small
+    shapes), each launch allocating its three outputs and one f32 scratch
+    of dq's parts."""
+    q, k, v, g = _line_views(shape, cuda, 17)
+    with torch.no_grad():
+        out, m, L = K.cca_line_route_fwd(q, k, v)
+        delta = (g.float() * out).sum(dim=-1)
+        for masked, view in LINE_PATHS:
+            args = [view(t) for t in (q, k, v, g, m, L, delta)]
+            allocs = torch.cuda.memory_stats()["allocation.all.allocated"]
+            got = K.cca_line_bwd(*args, masked)
+            assert torch.cuda.memory_stats()["allocation.all.allocated"] - allocs == 4
+            want = K.cca_line_bwd_plain(*args, masked, round_to=torch.bfloat16)
+            for a, b in zip(got, want):
+                assert a.dtype == torch.bfloat16 and a.shape == b.shape
+                assert torch.isfinite(a.float()).all()
+                scale = max(1.0, b.abs().max().item())
+                tol = 2.0 ** -8 if shape in TC_LINE_SMALL else 1e-2
+                assert (a.float() - b.to(torch.bfloat16).float()).abs().max().item() <= tol * scale
 
 
 LOSS_SHAPES = [(8, 97, 97, 19, 8), (2, 5, 7, 4, 3), (1, 9, 9, 6, 4)]  # B, h, w, C, r
