@@ -16,6 +16,15 @@
 // (ccnet_tpu_torch/ops/cc_attention_cuda.py). The f32 calls (the "highest"
 // precision) keep the CUDA-core kernels of cca_lines.cu.
 //
+// K1-K4 on bf16 lines longer than 128 (the natural route of the JAX package,
+// whose _fwd_*_kernel / _bwd_*_kernel round p and de as these do) run here
+// too: K1 and K3 as K7a / K7b on the column view; K2 as K7a on the rows with
+// its joint-softmax combine fused into the stores (o_col, m_col, l_col
+// given: out = (o_col a_c + o a_r) / L in f32, rounded once, and the joint
+// m, L written in place of the row stats), as the tensor-core K2 of
+// cca_fwd.cu combines; K4 as K7b on the rows with K3's bf16 grads added in
+// f32 before the one rounding (add_dq, add_dk, add_dv given).
+//
 // Lines are strided (cca_tc.cuh): position t of line (b, j) is pixel
 // b*sb + j*sm + t*sn, its channels contiguous. The column path reads and
 // writes NHWC tensors in place, the outputs landing in NHWC order.
@@ -97,6 +106,9 @@ struct LineArgs {
   float *m_out, *l_out;        // K7a
   bf16 *dq, *dk;               // K7b
   float* dq_part;              // K7b: [ceil(N / KT)][B M][N][Cq]
+  const bf16* o_col;           // K2 on these kernels: K1's outputs, combined into o, m, l
+  const float *m_col, *l_col;
+  const bf16 *add_dq, *add_dk, *add_dv;  // K4 on these kernels: K3's grads, added
   int lines, M, N, Cq, Cv;
   long long sb, sm, sn;
   bool masked;
@@ -199,14 +211,25 @@ __global__ void __launch_bounds__(NWQ * 32, 3) line_fwd_tc_kernel(const LineArgs
     }
   }
 
+  float wc[2] = {}, wr[2] = {}, Lj[2];  // K2's combine weights of this thread's two queries
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
     l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
     const int i = q0 + r0 + gid + 8 * h;
+    float m = mx[h];
+    Lj[h] = l[h];
+    if (a.o_col) {
+      const bool ok = i < N;
+      const float mc = ok ? a.m_col[base + i * sn] : 0.f, lc = ok ? a.l_col[base + i * sn] : 0.f;
+      m = fmaxf(mc, mx[h]);
+      wc[h] = expf(mc - m);
+      wr[h] = expf(mx[h] - m);
+      Lj[h] = lc * wc[h] + l[h] * wr[h];
+    }
     if (tig == 0 && i < N) {
-      a.m_out[base + i * sn] = mx[h];
-      a.l_out[base + i * sn] = l[h];
+      a.m_out[base + i * sn] = m;
+      a.l_out[base + i * sn] = Lj[h];
     }
   }
   __syncthreads();  // every warp is done with the ring before pass 3 refills it
@@ -253,9 +276,14 @@ __global__ void __launch_bounds__(NWQ * 32, 3) line_fwd_tc_kernel(const LineArgs
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int i = q0 + r0 + gid + 8 * h, c = ch * CH + n * 8 + 2 * tig;
-          if (i < N)
-            store_pair(a.o, nullptr, (base + i * sn) * a.Cv + c, c, a.Cv, acc[n][2 * h],
-                       acc[n][2 * h + 1]);
+          if (i >= N || c >= a.Cv) continue;
+          const long long o = (base + i * sn) * a.Cv + c;
+          float x0 = acc[n][2 * h], x1 = acc[n][2 * h + 1];
+          if (a.o_col) {
+            x0 = (__bfloat162float(a.o_col[o]) * wc[h] + x0 * wr[h]) / Lj[h];
+            if (c + 1 < a.Cv) x1 = (__bfloat162float(a.o_col[o + 1]) * wc[h] + x1 * wr[h]) / Lj[h];
+          }
+          store_pair(a.o, nullptr, o, c, a.Cv, x0, x1);
         }
       }
     }
@@ -479,7 +507,7 @@ __global__ void __launch_bounds__(128, 2) line_bwd_tc_kernel(const LineArgs a) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int j = k0 + r0 + gid + 8 * h, c = n * 8 + 2 * tig;
-      if (j < N) store_pair(a.dk, nullptr, (base + j * sn) * Cq + c, c, Cq, dk[n][2 * h],
+      if (j < N) store_pair(a.dk, a.add_dk, (base + j * sn) * Cq + c, c, Cq, dk[n][2 * h],
                             dk[n][2 * h + 1]);
     }
   }
@@ -543,7 +571,7 @@ __global__ void __launch_bounds__(128, 2) line_bwd_tc_kernel(const LineArgs a) {
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int j = k0 + r0 + gid + 8 * h, cc = c * CHB + n * 8 + 2 * tig;
-          if (j < N) store_pair(a.o, nullptr, (base + j * sn) * Cv + cc, cc, Cv, acc[n][2 * h],
+          if (j < N) store_pair(a.o, a.add_dv, (base + j * sn) * Cv + cc, cc, Cv, acc[n][2 * h],
                                 acc[n][2 * h + 1]);
         }
       }
@@ -551,7 +579,8 @@ __global__ void __launch_bounds__(128, 2) line_bwd_tc_kernel(const LineArgs a) {
   }
 }
 
-// dq = the sum of the key blocks' parts, in block order, written in bf16
+// dq = the sum of the key blocks' parts, in block order (plus add_dq when
+// given), written in bf16
 __global__ void line_dq_sum_kernel(const LineArgs a, int nkb) {
   const long long total = (long long)a.lines * a.N * a.Cq;
   for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x; e < total;
@@ -561,7 +590,9 @@ __global__ void line_dq_sum_kernel(const LineArgs a, int nkb) {
     const int line = (int)(li / a.N), i = (int)(li - (long long)line * a.N);
     float s = 0.f;
     for (int kb = 0; kb < nkb; ++kb) s += a.dq_part[kb * total + e];
-    a.dq[(line_base(line, a.M, a.sb, a.sm) + i * a.sn) * a.Cq + c] = __float2bfloat16(s);
+    const long long o = (line_base(line, a.M, a.sb, a.sm) + i * a.sn) * a.Cq + c;
+    if (a.add_dq) s += __bfloat162float(a.add_dq[o]);
+    a.dq[o] = __float2bfloat16(s);
   }
 }
 
@@ -592,17 +623,22 @@ bool bad_shape(int B, int M, int N, int Cq, int Cv) {
 extern "C" {
 
 // K7a on the tensor cores: bf16 q, k, v; o in bf16, m and l in f32, all
-// through the pixel strides (sb, sm, sn). Returns cudaGetLastError()
-// (cudaErrorInvalidValue for a shape it does not take: see
-// cca_line_fwd_tc_max_n).
-int cca_line_fwd_tc(const void* q, const void* k, const void* v, void* o, void* m, void* l, int B,
-                    int M, int N, int Cq, int Cv, long long sb, long long sm, long long sn,
-                    int masked, void* stream) {
+// through the pixel strides (sb, sm, sn). With o_col (bf16), m_col and l_col
+// (f32) given in the same layout (K2), o, m and l take the joint combine;
+// null otherwise. Returns cudaGetLastError() (cudaErrorInvalidValue for a
+// shape it does not take: see cca_line_fwd_tc_max_n).
+int cca_line_fwd_tc(const void* q, const void* k, const void* v, void* o, void* m, void* l,
+                    const void* o_col, const void* m_col, const void* l_col, int B, int M, int N,
+                    int Cq, int Cv, long long sb, long long sm, long long sn, int masked,
+                    void* stream) {
   if (bad_shape(B, M, N, Cq, Cv)) return (int)cudaErrorInvalidValue;
   LineArgs a = line_args(q, k, v, B, M, N, Cq, Cv, sb, sm, sn, masked);
   a.o = static_cast<bf16*>(o);
   a.m_out = static_cast<float*>(m);
   a.l_out = static_cast<float*>(l);
+  a.o_col = static_cast<const bf16*>(o_col);
+  a.m_col = static_cast<const float*>(m_col);
+  a.l_col = static_cast<const float*>(l_col);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (fwd_warps(Cq, N)) {  // warps per block: the p tile must fit
     case 4: return launch_fwd_nwq<4>(a, st);
@@ -621,12 +657,15 @@ int cca_line_fwd_tc_max_n(int Cq) {
 
 // K7b on the tensor cores: bf16 q, k, v, g; f32 m, L, delta; dq, dk, dv in
 // bf16, all through the pixel strides. dq_part is f32 scratch of
-// ceil(N / 64) * B * M * N * Cq floats. Launches the key-block kernel, then
-// the fixed-order sum of dq. Returns cudaGetLastError().
+// ceil(N / 64) * B * M * N * Cq floats. add_dq, add_dk, add_dv (bf16, the
+// same layout; K4) are added to the grads in f32 before they are rounded,
+// or null. Launches the key-block kernel, then the fixed-order sum of dq.
+// Returns cudaGetLastError().
 int cca_line_bwd_tc(const void* q, const void* k, const void* v, const void* g, const void* m,
                     const void* L, const void* delta, void* dq_part, void* dq, void* dk, void* dv,
-                    int B, int M, int N, int Cq, int Cv, long long sb, long long sm, long long sn,
-                    int masked, void* stream) {
+                    const void* add_dq, const void* add_dk, const void* add_dv, int B, int M,
+                    int N, int Cq, int Cv, long long sb, long long sm, long long sn, int masked,
+                    void* stream) {
   if (bad_shape(B, M, N, Cq, Cv)) return (int)cudaErrorInvalidValue;
   LineArgs a = line_args(q, k, v, B, M, N, Cq, Cv, sb, sm, sn, masked);
   a.g = static_cast<const bf16*>(g);
@@ -637,6 +676,9 @@ int cca_line_bwd_tc(const void* q, const void* k, const void* v, const void* g, 
   a.dq = static_cast<bf16*>(dq);
   a.dk = static_cast<bf16*>(dk);
   a.o = static_cast<bf16*>(dv);
+  a.add_dq = static_cast<const bf16*>(add_dq);
+  a.add_dk = static_cast<const bf16*>(add_dk);
+  a.add_dv = static_cast<const bf16*>(add_dv);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int cqp = round16(Cq), nkb = (N + KT - 1) / KT;
   const size_t smem = bwd_smem_bytes(cqp, Cv);

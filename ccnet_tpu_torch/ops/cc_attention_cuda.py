@@ -14,20 +14,24 @@ beside it:
 * K2 :func:`cca_fwd_row` replaces ``_fwd_row_kernel``: the row path fused
   with the joint-softmax combine, giving ``out`` in v's dtype and the joint
   ``(m, L)`` residuals; plain version :func:`cca_fwd_row_plain`.
-  K1 and K2 each have two designs (:func:`kernel_design`): bf16 lines of at
-  most :data:`LONG_LINE` go to the tensor-core kernel (one block per line,
-  ``p`` rounded to bf16 in registers between its two products, as the TPU
-  kernels round it at the default precision), f32 and longer bf16 lines to
-  the CUDA-core kernel (f32 arithmetic, online softmax over key tiles).
+  K1 and K2 each have three designs (:func:`kernel_design`, from each
+  kernel's own line: H for K1, W for K2): bf16 lines of at most
+  :data:`LONG_LINE` go to the tensor-core kernel (one block per line, ``p``
+  rounded to bf16 in registers between its two products, as the TPU kernels
+  round it at the default precision), longer bf16 lines to K7a's
+  tensor-core kernel (the same function: K1 on the column view, K2 on the
+  rows with the combine fused into its stores), f32 to the CUDA-core kernel
+  (f32 arithmetic, online softmax over key tiles).
 * K3 :func:`cca_bwd_col` replaces ``_bwd_col_kernel``: the column path's
   dq, dk, dv in the input dtype, recomputed from ``(q, k, m, L)`` and
   ``delta``; plain version :func:`cca_bwd_col_plain`.
 * K4 :func:`cca_bwd_row` replaces ``_bwd_row_kernel``: the row path's grads
   plus K3's, in the input dtype; plain version :func:`cca_bwd_row_plain`.
-  K3 and K4 each have the same two designs: bf16 lines of at
-  most :data:`LONG_LINE` go to the tensor-core kernel (one block per line,
-  no scratch), f32 and longer bf16 lines to the CUDA-core pair (f32
-  arithmetic, p and de through f32 scratch).
+  K3 and K4 each have the same three designs: bf16 lines of at most
+  :data:`LONG_LINE` go to the tensor-core kernel (one block per line, no
+  scratch), longer bf16 lines to K7b's tensor-core kernels (K3 on the
+  column view, K4 on the rows adding K3's grads before its one rounding),
+  f32 to the CUDA-core pair (f32 arithmetic, p and de through f32 scratch).
 * K7a :func:`cca_line_fwd` replaces ``_legacy_fwd_kernel``: ONE path over
   ``(B, M, N, C)`` lines, optionally self-masked, ``o`` in v's dtype;
   plain version :func:`cca_line_fwd_plain`.
@@ -76,8 +80,10 @@ from ccnet_tpu_torch.ops.cc_attention import NEG_INF
 # launches of each kernel made by this process; callers may reset them to 0.
 # ``cca_fwd_col_tc`` / ``cca_fwd_row_tc`` and ``cca_bwd_col_tc`` /
 # ``cca_bwd_row_tc`` count the K1/K2 and K3/K4 launches that took the
-# tensor-core design, ``cca_line_fwd_tc`` / ``cca_line_bwd_tc`` those of
-# K7a/K7b (each also counts under the kernel's own name).
+# one-block-per-line tensor-core design, ``cca_line_fwd_tc`` /
+# ``cca_line_bwd_tc`` every launch of K7a's / K7b's tensor-core kernels:
+# K7a/K7b's own and those of K1–K4 on bf16 lines past :data:`LONG_LINE`
+# (each also counts under the wrapper's own name).
 LAUNCHES = {"cca_fwd_col": 0, "cca_fwd_row": 0, "cca_fwd_col_tc": 0, "cca_fwd_row_tc": 0,
             "cca_bwd_col": 0, "cca_bwd_row": 0, "cca_bwd_col_tc": 0, "cca_bwd_row_tc": 0,
             "cca_line_fwd": 0, "cca_line_bwd": 0, "cca_line_fwd_tc": 0, "cca_line_bwd_tc": 0}
@@ -150,9 +156,9 @@ def _lines_tc_lib():
     lib = load_library("cca_lines_tc")
     if not getattr(lib, "_ccnet_bound", False):
         _L = ctypes.c_longlong
-        lib.cca_line_fwd_tc.argtypes = [_P] * 6 + [_I] * 5 + [_L] * 3 + [_I, _P]
+        lib.cca_line_fwd_tc.argtypes = [_P] * 9 + [_I] * 5 + [_L] * 3 + [_I, _P]
         lib.cca_line_fwd_tc.restype = ctypes.c_int
-        lib.cca_line_bwd_tc.argtypes = [_P] * 11 + [_I] * 5 + [_L] * 3 + [_I, _P]
+        lib.cca_line_bwd_tc.argtypes = [_P] * 14 + [_I] * 5 + [_L] * 3 + [_I, _P]
         lib.cca_line_bwd_tc.restype = ctypes.c_int
         lib.cca_line_fwd_tc_max_n.argtypes = [_I]
         lib.cca_line_fwd_tc_max_n.restype = _I
@@ -347,34 +353,49 @@ def cca_bwd_row_plain(q, k, v, g, m, L, delta, dq_c, dk_c, dv_c):
 # ------------------------------------------------------------------ kernels
 
 
-DESIGNS = ("tensor_core", "cuda_core")
+DESIGNS = ("tensor_core", "tensor_core_lines", "cuda_core")
+PATHS = ("col", "row")
 
 
-def kernel_design(q: torch.Tensor) -> str:
-    """The design K1–K4 take for ``q``: ``"tensor_core"`` (one block per
-    line, the products on the tensor cores in bf16, no scratch) for bf16
-    lines of at most :data:`LONG_LINE` on both paths, which at the model's
-    widths is every call :class:`CrissCrossAttentionFn` sends to K1–K4 but
-    the forward at H = 129 or 130; ``"cuda_core"`` (f32 arithmetic: K1/K2 an
-    online softmax over key tiles, K3/K4 p and de through f32 scratch) for
-    f32 and for longer lines."""
-    if q.dtype == torch.bfloat16 and max(q.shape[1], q.shape[2]) <= LONG_LINE:
-        return "tensor_core"
-    return "cuda_core"
+def kernel_design(q: torch.Tensor, path: str) -> str:
+    """The design the ``path`` kernels (``"col"``: K1, K3; ``"row"``: K2, K4)
+    take for ``q``, from their own line (H for the column path, W for the
+    row path): for bf16 (the JAX package's default precision, p and de
+    rounded to bf16) ``"tensor_core"`` (one block per line, no scratch) on
+    lines of at most :data:`LONG_LINE`, ``"tensor_core_lines"`` (K7a's /
+    K7b's tensor-core kernels, keys tiled) on longer ones, which at the
+    model's widths the forward meets at H = 129 or 130 (K1 only);
+    ``"cuda_core"`` (f32 arithmetic: K1/K2 an online softmax over key tiles,
+    K3/K4 p and de through f32 scratch) for f32, the "highest" precision."""
+    if path not in PATHS:
+        raise ValueError(f"path must be one of {PATHS}; got {path!r}")
+    if q.dtype != torch.bfloat16:
+        return "cuda_core"
+    return "tensor_core" if q.shape[1 if path == "col" else 2] <= LONG_LINE else "tensor_core_lines"
 
 
-def _resolve_design(name: str, q: torch.Tensor, design, rule=kernel_design) -> str:
+def _resolve_design(name: str, q: torch.Tensor, design, rule) -> str:
     """``design`` checked against ``q`` (``None``: ``rule(q)``, the kernel's
-    own choice: :func:`kernel_design` for K1–K4, :func:`line_design` for
-    K7a/K7b)."""
+    own choice: :func:`kernel_design` of its path for K1–K4,
+    :func:`line_design` for K7a/K7b). The CUDA-core design may be forced on
+    any call (to time one design against the other); a tensor-core design
+    only where it is the kernel's own choice."""
     if design is None:
         return rule(q)
     if design not in DESIGNS:
         raise ValueError(f"{name}: design must be one of {DESIGNS}; got {design!r}")
-    if design == "tensor_core" and rule(q) != design:
-        raise ValueError(f"{name}: the tensor-core design does not take {q.dtype} "
+    if design != "cuda_core" and rule(q) != design:
+        raise ValueError(f"{name}: the {design} design does not take {q.dtype} "
                          f"{tuple(q.shape)}")
     return design
+
+
+def _col_design(q: torch.Tensor) -> str:
+    return kernel_design(q, "col")
+
+
+def _row_design(q: torch.Tensor) -> str:
+    return kernel_design(q, "row")
 
 
 def _fwd_launch(name, design, q, k, v, col_in, outs):
@@ -401,11 +422,14 @@ def cca_fwd_col(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, design=None):
     (B,H,W) f32)``. ``design`` forces one of :data:`DESIGNS` (to time one
     against the other); ``None`` takes :func:`kernel_design`."""
     route = _check(q, k, v)
-    design = _resolve_design("cca_fwd_col", q, design)
+    design = _resolve_design("cca_fwd_col", q, design, _col_design)
     if route == "cpu":
         return cca_fwd_col_plain(q, k, v)
     B, H, W, _ = q.shape
     with torch.cuda.device(q.device):
+        if design == "tensor_core_lines":  # K7a on the column view, o_col in bf16
+            return tuple(map(_to_col, _line_fwd_tc(*map(_to_col, (q, k, v)), True,
+                                                   ("cca_fwd_col",))))
         f32 = dict(device=q.device, dtype=torch.float32)
         outs = (torch.empty_like(v), torch.empty((B, H, W), **f32),
                 torch.empty((B, H, W), **f32))
@@ -423,10 +447,12 @@ def cca_fwd_row(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o_col: torch.
     _check_like("o_col", o_col, v.shape, q.device, v.dtype)
     _check_like("m_col", m_col, (B, H, W), q.device)
     _check_like("l_col", l_col, (B, H, W), q.device)
-    design = _resolve_design("cca_fwd_row", q, design)
+    design = _resolve_design("cca_fwd_row", q, design, _row_design)
     if route == "cpu":
         return cca_fwd_row_plain(q, k, v, o_col, m_col, l_col)
     with torch.cuda.device(q.device):
+        if design == "tensor_core_lines":  # K7a on the rows, the combine in its stores
+            return _line_fwd_tc(q, k, v, False, ("cca_fwd_row",), (o_col, m_col, l_col))
         f32 = dict(device=q.device, dtype=torch.float32)
         outs = (torch.empty_like(v), torch.empty((B, H, W), **f32),
                 torch.empty((B, H, W), **f32))
@@ -471,10 +497,13 @@ def cca_bwd_col(q, k, v, g, m, L, delta, design=None):
     forces one of :data:`DESIGNS` on a CUDA tensor (to time one against
     the other); ``None`` takes :func:`kernel_design`."""
     route = _check_bwd(q, k, v, g, m, L, delta)
-    design = _resolve_design("cca_bwd_col", q, design)
+    design = _resolve_design("cca_bwd_col", q, design, _col_design)
     if route == "cpu":
         return cca_bwd_col_plain(q, k, v, g, m, L, delta)
     with torch.cuda.device(q.device):
+        if design == "tensor_core_lines":  # K7b on the column view
+            return tuple(map(_to_col, _line_bwd_tc(*map(_to_col, (q, k, v, g, m, L, delta)),
+                                                   True, ("cca_bwd_col",))))
         outs = [torch.empty_like(t) for t in (q, k, v)]
         _bwd_launch("cca_bwd_col", design, q, k, v, g, m, L, delta, (), outs)
     return tuple(outs)
@@ -487,10 +516,13 @@ def cca_bwd_row(q, k, v, g, m, L, delta, dq_c, dk_c, dv_c, design=None):
     route = _check_bwd(q, k, v, g, m, L, delta)
     for name, t, ref in (("dq_c", dq_c, q), ("dk_c", dk_c, k), ("dv_c", dv_c, v)):
         _check_like(name, t, ref.shape, q.device, ref.dtype)
-    design = _resolve_design("cca_bwd_row", q, design)
+    design = _resolve_design("cca_bwd_row", q, design, _row_design)
     if route == "cpu":
         return cca_bwd_row_plain(q, k, v, g, m, L, delta, dq_c, dk_c, dv_c)
     with torch.cuda.device(q.device):
+        if design == "tensor_core_lines":  # K7b on the rows, K3's grads added before rounding
+            return _line_bwd_tc(q, k, v, g, m, L, delta, False, ("cca_bwd_row",),
+                                (dq_c, dk_c, dv_c))
         outs = [torch.empty_like(t) for t in (q, k, v)]
         _bwd_launch("cca_bwd_row", design, q, k, v, g, m, L, delta, (dq_c, dk_c, dv_c), outs)
     return tuple(outs)
@@ -514,15 +546,18 @@ def line_design(q: torch.Tensor) -> str:
     return "tensor_core" if q.dtype == torch.bfloat16 else "cuda_core"
 
 
-def _line_launch(name, design, q, tensors, outs, masked):
+def _line_launch(name, design, q, tensors, outs, masked, counted, fused=()):
     """Launch K7a or K7b in ``design`` on ``(B, M, N, C)`` lines: row lines
     are contiguous, column lines a transposed view; the kernel reads and
     writes every tensor through the pixel strides (batch, line, position)
     of that layout. The tensor-core K7b also gets f32 scratch for the key
-    blocks' parts of dq (``ceil(N / 64)`` × B·M·N × Cq floats)."""
+    blocks' parts of dq (``ceil(N / 64)`` × B·M·N × Cq floats). ``fused``:
+    the tensor-core kernels' optional inputs in the same layout (K2's
+    ``o_col, m_col, l_col`` for K7a, K4's column grads for K7b), or none.
+    The launch counts once under each name of ``counted``."""
     B, M, N, Cq = q.shape
     col = not q.is_contiguous()
-    for i, t in enumerate((*tensors, *outs)):
+    for i, t in enumerate((*tensors, *fused, *outs)):
         _check_lines(f"{name} argument {i}", t, col)
     strides = (M * N, 1, M) if col else (M * N, N, 1)
     Cv = tensors[2].shape[-1]
@@ -533,6 +568,7 @@ def _line_launch(name, design, q, tensors, outs, masked):
             scratch = (torch.empty(((N + 63) // 64) * B * M * N * Cq, device=q.device,
                                    dtype=torch.float32),)
         ptrs = [_P(t.data_ptr()) for t in (*tensors, *scratch, *outs)]
+        ptrs += [_P(t.data_ptr()) for t in fused] or [_P(None)] * 3
         rc = getattr(_lines_tc_lib(), f"{name}_tc")(*ptrs, B, M, N, Cq, Cv, *strides,
                                                     int(masked), stream)
     else:
@@ -541,9 +577,8 @@ def _line_launch(name, design, q, tensors, outs, masked):
                                          int(q.dtype == torch.bfloat16), stream)
     if rc != 0:
         raise RuntimeError(f"{name} ({design}) launch failed: CUDA error {rc}")
-    LAUNCHES[name] += 1
-    if design == "tensor_core":
-        LAUNCHES[f"{name}_tc"] += 1
+    for n in counted:
+        LAUNCHES[n] += 1
 
 
 def _empty_lines(like: torch.Tensor, shape, dtype=torch.float32) -> torch.Tensor:
@@ -553,6 +588,34 @@ def _empty_lines(like: torch.Tensor, shape, dtype=torch.float32) -> torch.Tensor
         return torch.empty(shape, device=like.device, dtype=dtype)
     return _to_col(torch.empty((shape[0], shape[2], shape[1], *shape[3:]),
                                device=like.device, dtype=dtype))
+
+
+def _line_fwd_tc(q, k, v, masked: bool, counted, combine=()):
+    """K7a's tensor-core kernel on ``(B, M, N, C)`` bf16 lines in q's layout:
+    ``(o bf16, m, l)``; with ``combine`` (K1's ``o_col, m_col, l_col`` in
+    that layout, K2) the joint ``(out bf16, m, L)``. Counts under
+    ``counted`` and ``cca_line_fwd_tc``."""
+    B, M, N, Cq = q.shape
+    longest = _lines_tc_lib().cca_line_fwd_tc_max_n(Cq)
+    if N > longest:
+        raise ValueError(f"{counted[0]}: lines of {N} exceed the {longest} the tensor-core "
+                         f"kernel's p tile holds at Cq={Cq}")
+    outs = (_empty_lines(q, (B, M, N, v.shape[-1]), torch.bfloat16), _empty_lines(q, (B, M, N)),
+            _empty_lines(q, (B, M, N)))
+    _line_launch("cca_line_fwd", "tensor_core", q, (q, k, v), outs, masked,
+                 (*counted, "cca_line_fwd_tc"), combine)
+    return outs
+
+
+def _line_bwd_tc(q, k, v, g, m, L, delta, masked: bool, counted, add=()):
+    """K7b's tensor-core kernels on ``(B, M, N, C)`` bf16 lines in q's
+    layout: ``(dq, dk, dv)`` in bf16, plus ``add`` (K3's grads in that
+    layout, K4) in f32 before the rounding. Counts under ``counted`` and
+    ``cca_line_bwd_tc``."""
+    outs = tuple(_empty_lines(q, t.shape, torch.bfloat16) for t in (q, k, v))
+    _line_launch("cca_line_bwd", "tensor_core", q, (q, k, v, g, m, L, delta), outs, masked,
+                 (*counted, "cca_line_bwd_tc"), add)
+    return outs
 
 
 def cca_line_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, masked: bool, design=None):
@@ -569,18 +632,13 @@ def cca_line_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, masked: bool
     if route == "cpu":
         o, m, l = cca_line_fwd_plain(q, k, v, masked, round_to=_mxu_round(q))
         return o.to(v.dtype), m, l
-    B, M, N, Cq = q.shape
-    o_dtype = torch.float32
-    if design == "tensor_core":
-        o_dtype = torch.bfloat16
-        longest = _lines_tc_lib().cca_line_fwd_tc_max_n(Cq)
-        if N > longest:
-            raise ValueError(f"cca_line_fwd: lines of {N} exceed the {longest} the tensor-core "
-                             f"kernel's p tile holds at Cq={Cq}")
+    B, M, N, _ = q.shape
     with torch.cuda.device(q.device):
-        outs = (_empty_lines(q, (B, M, N, v.shape[-1]), o_dtype), _empty_lines(q, (B, M, N)),
+        if design == "tensor_core":
+            return _line_fwd_tc(q, k, v, masked, ("cca_line_fwd",))
+        outs = (_empty_lines(q, (B, M, N, v.shape[-1])), _empty_lines(q, (B, M, N)),
                 _empty_lines(q, (B, M, N)))
-        _line_launch("cca_line_fwd", design, q, (q, k, v), outs, masked)
+        _line_launch("cca_line_fwd", design, q, (q, k, v), outs, masked, ("cca_line_fwd",))
     return outs
 
 
@@ -597,15 +655,16 @@ def cca_line_bwd(q, k, v, g, m, L, delta, masked: bool, design=None):
     if route == "cpu":
         grads = cca_line_bwd_plain(q, k, v, g, m, L, delta, masked, round_to=_mxu_round(q))
         return tuple(d.to(t.dtype) for d, t in zip(grads, (q, k, v)))
-    if design == "cuda_core":
+    with torch.cuda.device(q.device):
+        if design == "tensor_core":
+            return _line_bwd_tc(q, k, v, g, m, L, delta, masked, ("cca_line_bwd",))
         smem = _lines_lib().cca_line_bwd_smem_bytes(q.shape[-1], v.shape[-1])
         if smem > MAX_SMEM:
             raise ValueError(f"cca_line_bwd: Cv={v.shape[-1]} needs {smem} B of shared memory, "
                              f"over {MAX_SMEM}")
-    dtype = torch.bfloat16 if design == "tensor_core" else torch.float32
-    with torch.cuda.device(q.device):
-        outs = tuple(_empty_lines(q, t.shape, dtype) for t in (q, k, v))
-        _line_launch("cca_line_bwd", design, q, (q, k, v, g, m, L, delta), outs, masked)
+        outs = tuple(_empty_lines(q, t.shape) for t in (q, k, v))
+        _line_launch("cca_line_bwd", design, q, (q, k, v, g, m, L, delta), outs, masked,
+                     ("cca_line_bwd",))
     return outs
 
 

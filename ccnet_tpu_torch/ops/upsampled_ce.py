@@ -12,6 +12,14 @@ it; each has a wrapper here and a plain PyTorch version beside it:
   gradient for an upstream grad ``g``; plain version
   :func:`upsampled_nll_bwd_plain` (autograd of the reference).
 
+Both kernels work on tiles of :func:`band_tile` coarse columns: K5 one block
+per (image, band of r fine rows, tile), K6 one block per (image, coarse row,
+tile) over the fine rows and columns that weigh on it, halo included, with
+a fixed-order reduction and no atomics (the design is in the source's
+note). :func:`upsampled_nll_band_fwd` and :func:`upsampled_nll_band_bwd`
+are plain-torch mirrors of that algorithm (the same tiles, halo, skipped
+pixels and reduction order) for the CPU tests; no route runs them.
+
 :class:`UpsampledNLLFn` is the ``torch.autograd.Function`` of the JAX
 package's ``upsampled_nll`` custom VJP: K5 forward, K6 backward, no grad
 to the labels. The JAX package's GSPMD wrappers (``_def_batch_partition``,
@@ -37,6 +45,7 @@ import torch.nn.functional as F
 LAUNCHES = {"upsampled_nll_fwd": 0, "upsampled_nll_bwd": 0}
 
 MAX_C = 32  # the kernels keep one pixel's class values in registers
+BAND_COLS = 256  # fine columns one block of K5/K6 covers, one per thread
 _LABEL_BYTES = {torch.int32: 4, torch.uint8: 1}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -63,6 +72,125 @@ def interp_matrix(w: int, W: int, r: int) -> np.ndarray:
             M[lo, x] += 1.0 - f
             M[lo + 1, x] += f
     return M
+
+
+def band_tile(w: int, r: int) -> int:
+    """The coarse columns T of a tile of K5/K6: as many as keep a tile's
+    fine columns plus K6's halo (T·r + r − 1) within :data:`BAND_COLS`, then
+    evened out over the ``ceil(w / T)`` tiles of a row (97 → 4 tiles of 25,
+    25, 25, 22 at r = 8)."""
+    tmax = max(1, (BAND_COLS - r + 1) // r)
+    n = -(-w // tmax)
+    return -(-w // n)
+
+
+def _width_taps(w: int, W: int, r: int):
+    """Per fine column x: ``(x0, x1, w0, w1)`` as long tensors and f32
+    weights, the two nonzero entries of :func:`interp_matrix`'s column
+    (``x0 == x1 == w − 1``, weights (1, 0), past the last coarse column)."""
+    x = np.arange(W)
+    lo, frac = x // r, x % r
+    last = lo >= w - 1
+    f = frac / r
+    x0 = np.where(last, w - 1, lo)
+    x1 = np.where(last, w - 1, lo + 1)
+    w0 = np.where(last, 1.0, 1.0 - f).astype(np.float32)
+    w1 = np.where(last, 0.0, f).astype(np.float32)
+    return (torch.from_numpy(x0), torch.from_numpy(x1), torch.from_numpy(w0),
+            torch.from_numpy(w1))
+
+
+def _band_u(L, taps, seg: int, wy) -> torch.Tensor:
+    """u (B, C, len(wy), columns) of segment ``seg``: coarse rows ``seg``
+    and ``seg + 1`` (clamped) of ``L`` (B, C, h, w) lerped across the width
+    at the columns whose ``taps`` are given, then across the height at each
+    fine row's ``wy``, in f32 as the kernels do."""
+    h = L.shape[2]
+    x0, x1, w0, w1 = taps
+    R0, R1 = (L[:, :, min(k, h - 1)][:, :, x0] * w0 + L[:, :, min(k, h - 1)][:, :, x1] * w1
+              for k in (seg, seg + 1))
+    return torch.stack([R0 * (1.0 - t) + R1 * t for t in wy], dim=2)
+
+
+def _wy(y: int, y0: int, r: int) -> torch.Tensor:
+    """The height weight of fine row y in the segment starting at y0, as
+    the kernels divide it in f32."""
+    return torch.tensor(np.float32(y - y0) / np.float32(r))
+
+
+def upsampled_nll_band_fwd(logits: torch.Tensor, labels: torch.Tensor, T=None) -> torch.Tensor:
+    """K5's algorithm in plain torch, tile by tile: for each band k (fine
+    rows k·r .. k·r + r − 1) and tile of ``T`` coarse columns (default
+    :func:`band_tile`), coarse rows k and k + 1 lerped across the width once
+    per fine column, then each fine row's height lerp and softmax. For the
+    CPU tests; no route takes it."""
+    B, C, h, w = logits.shape
+    H, W = labels.shape[1:]
+    r = integer_upsample_ratio(h, H)
+    T = T or band_tile(w, r)
+    L = logits.float()
+    taps = _width_taps(w, W, r)
+    lab = labels.long()
+    nll = torch.zeros((B, H, W), dtype=torch.float32)
+    for k in range(h):
+        ys = range(k * r, min(k * r + r, H))
+        wy = [_wy(y, k * r, r) for y in ys]
+        for j0 in range(0, w, T):
+            j1 = min(j0 + T, w)
+            cols = slice(j0 * r, W if j1 == w else j1 * r)
+            u = _band_u(L, [t[cols] for t in taps], k, wy)
+            lse = torch.logsumexp(u, dim=1)
+            lt = lab[:, ys.start:ys.stop, cols]
+            valid = (lt >= 0) & (lt < C)
+            ul = u.gather(1, torch.where(valid, lt, 0)[:, None])[:, 0]
+            nll[:, ys.start:ys.stop, cols] = torch.where(valid, lse - ul, torch.zeros_like(ul))
+    return nll
+
+
+def upsampled_nll_band_bwd(logits: torch.Tensor, labels: torch.Tensor, g: torch.Tensor,
+                           T=None) -> torch.Tensor:
+    """K6's algorithm in plain torch: for each coarse row k and tile of ``T``
+    coarse columns (default :func:`band_tile`), the fine rows (k−1)·r + 1 ..
+    k·r + r − 1 (weight wy in segment k − 1, 1 − wy in segment k) over the
+    tile's fine columns plus the halo, each column summing
+    ``wgt_y · g · (softmax − onehot)`` row by row in order over the pixels
+    that count (a label in [0, C), g ≠ 0); then each coarse column j sums its
+    fine columns (j−1)·r + 1 .. j·r + r − 1 in order, weighted by
+    :func:`interp_matrix`. For the CPU tests; no route takes it."""
+    B, C, h, w = logits.shape
+    H, W = labels.shape[1:]
+    r = integer_upsample_ratio(h, H)
+    T = T or band_tile(w, r)
+    L = logits.float()
+    M = torch.from_numpy(interp_matrix(w, W, r))
+    taps = _width_taps(w, W, r)
+    lab, gf = labels.long(), g.float()
+    out = torch.empty((B, C, h, w), dtype=torch.float32)
+    for k in range(h):
+        # (segment, its first fine row, fine rows, whether row k is its second)
+        segs = [(k - 1, (k - 1) * r, range((k - 1) * r + 1, k * r), True)] if k >= 1 else []
+        segs.append((k, k * r, range(k * r, min(k * r + r, H)), False))
+        for j0 in range(0, w, T):
+            j1 = min(j0 + T, w)
+            xs, xe = max(0, (j0 - 1) * r + 1), min(W - 1, (j1 - 1) * r + r - 1)
+            cols = slice(xs, xe + 1)
+            acc = torch.zeros((B, C, xe - xs + 1), dtype=torch.float32)
+            for seg, y0, ys, second in segs:
+                for y in ys:
+                    wy = _wy(y, y0, r)
+                    u = _band_u(L, [t[cols] for t in taps], seg, [wy])[:, :, 0]
+                    p = torch.softmax(u, dim=1)
+                    lt, gt = lab[:, y, cols], gf[:, y, cols]
+                    live = (lt >= 0) & (lt < C) & (gt != 0)
+                    onehot = F.one_hot(torch.where(live, lt, 0), C).permute(0, 2, 1)
+                    wgt = gt * (wy if second else 1.0 - wy)
+                    acc = acc + torch.where(live[:, None], wgt[:, None] * (p - onehot), 0.0)
+            for j in range(j0, j1):
+                s = torch.zeros((B, C), dtype=torch.float32)
+                for x in range(max(0, (j - 1) * r + 1), min(W - 1, j * r + r - 1) + 1):
+                    s = s + M[j, x] * acc[:, :, x - xs]
+                out[:, :, k, j] = s
+    return out
 
 
 def upsampled_nll_reference(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -119,9 +247,9 @@ def _lib():
 
     lib = load_library("upsampled_ce")
     if not getattr(lib, "_ccnet_bound", False):
-        lib.upsampled_nll_fwd.argtypes = [_P, _P, _P] + [_I] * 8 + [_P]
+        lib.upsampled_nll_fwd.argtypes = [_P, _P, _P] + [_I] * 9 + [_P]
         lib.upsampled_nll_fwd.restype = ctypes.c_int
-        lib.upsampled_nll_bwd.argtypes = [_P, _P, _P, _P] + [_I] * 8 + [_P]
+        lib.upsampled_nll_bwd.argtypes = [_P, _P, _P, _P] + [_I] * 9 + [_P]
         lib.upsampled_nll_bwd.restype = ctypes.c_int
         lib._ccnet_bound = True
     return lib
@@ -129,7 +257,8 @@ def _lib():
 
 def _dims(logits, labels, r) -> list:
     B, C, h, w = logits.shape
-    return [B, C, h, w, labels.shape[1], labels.shape[2], r, _LABEL_BYTES[labels.dtype]]
+    return [B, C, h, w, labels.shape[1], labels.shape[2], r, band_tile(w, r),
+            _LABEL_BYTES[labels.dtype]]
 
 
 def upsampled_nll_fwd(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

@@ -14,22 +14,30 @@ failure raises and exits non-zero:
 3. kernels vs plain: K1 ``cca_fwd_col`` and K2 ``cca_fwd_row`` against their
    plain-torch versions, and the routed op against the joint-softmax
    oracle, at the sliding-tile, whole-image and edge shapes, in f32 (TF32
-   off) and bf16 (bf16 lines of at most 128, plus edge lines: the
-   tensor-core design against the plain versions on the same bf16 tensors;
-   f32 and the long shape: the CUDA-core kernel; the tensor-core design's
-   bf16 outputs must also be bit-equal to the rounding plain versions' but
-   for a few flipped roundings, which the plain version that does not round
-   p is not); at the sliding shape CUDA-event times of both designs and the
-   plain versions, and the CCA forward against the plain op;
+   off: the CUDA-core kernel) and bf16 (each kernel's own line: lines of at
+   most 128 on the one-block tensor-core design, longer ones on K7a's
+   tensor-core kernel, as at the whole-image shape and the edge shapes of
+   bf16 natural-route lines of 129 to 400; both against the plain versions
+   on the same bf16 tensors, their bf16 outputs bit-equal to the rounding
+   plain versions' but for a few flipped roundings, which the plain version
+   that does not round p is not); at the sliding shape CUDA-event times of
+   the tensor-core and CUDA-core designs and the plain versions, and the
+   CCA forward against the plain op;
 4. backward kernels vs plain: K3 ``cca_bwd_col`` and K4 ``cca_bwd_row``
    against their plain versions, and the autograd Function's grads against
-   torch.autograd of the plain op, at the same shapes and dtypes (bf16
-   lines of at most 128, plus edge lines: the tensor-core design against the
-   plain version on the same bf16 tensors; f32 and the long shape: the
-   CUDA-core pair); times of both designs at the sliding shape;
+   torch.autograd of the plain op, at the same shapes and dtypes (bf16: the
+   one-block tensor-core design on lines of at most 128, K7b's tensor-core
+   kernels on longer ones, against the plain version on the same bf16
+   tensors; f32: the CUDA-core pair); times of the tensor-core and
+   CUDA-core designs at the sliding shape;
 5. loss kernels vs plain: K5 ``upsampled_nll_fwd`` and K6
    ``upsampled_nll_bwd`` against the materialised upsample + NLL and its
-   autograd, int32 and uint8 labels; times at (8, 97, 97, 19) → 769²;
+   autograd, int32 and uint8 labels, at the 769² and full-frame shapes,
+   ragged column tiles and r = 300, K6 also with a sparse and a zero g;
+   times at (8, 97, 97, 19) → 769² and (2, 129, 257, 19) → 1025×2049, K6
+   with a dense g and with g live on 2 % of the pixels, beside the bounds;
+   ``criterion_ohem_dsn`` forward + backward at the 769² step's logits,
+   kernel route against plain route, timed in turns;
 6. line kernels vs plain: K7a ``cca_line_fwd`` and K7b ``cca_line_bwd`` on
    both paths as the line route calls them, and the routed Function's
    output and grads (each direction routed as the JAX package routes it),
@@ -137,9 +145,13 @@ TC_TOL = 1e-2
 # rounding plain versions' but for at most this share of flipped roundings;
 # the plain version that keeps p in f32 differs from them in more
 TC_FLIPS = 1e-2
-# edge lines of the tensor-core design beyond SHAPES (B, H, W, Cq, Cv): the
-# longest line (128) on both paths, N = 16 / 17 with 4 or 8 q/k channels
-TC_EDGE_SHAPES = [(1, 128, 128, 64, 512), (2, 16, 17, 8, 16), (1, 17, 16, 4, 512)]
+# edge lines of the tensor-core designs beyond SHAPES (B, H, W, Cq, Cv): the
+# longest line (128) of the one-block design on both paths, N = 16 / 17 with
+# 4 or 8 q/k channels, and bf16 natural-route lines past 128, which K1–K4 run
+# on the tensor-core line kernels: the forward at H = 129 and the model's
+# widths (K1 on them, K2 not), and narrow widths with lines of 129 to 400
+TC_EDGE_SHAPES = [(1, 128, 128, 64, 512), (2, 16, 17, 8, 16), (1, 17, 16, 4, 512),
+                  (1, 129, 120, 64, 512), (2, 300, 200, 8, 16), (1, 300, 129, 8, 16)]
 EVAL_AB_REPS = 6  # timed eval forwards of each CCA route, in turns
 # B, H, W, Cq, Cv of the line route: whole image at scale 1.0 (and full-frame
 # training), at scale 1.75, and edge shapes (N = 1 on either path)
@@ -150,9 +162,18 @@ LINE_SHAPES = [(1, 129, 257, 64, 512), (1, 225, 449, 64, 512), (2, 9, 441, 8, 16
 LINE_TC_EDGE_SHAPES = [(2, 16, 17, 8, 16), (1, 65, 128, 64, 512), (1, 463, 5, 64, 512),
                        (1, 3, 464, 16, 32), (2, 465, 3, 12, 21), (1, 33, 97, 128, 64)]
 TRAIN_AB_REPS = 3  # timed train steps of each route, in turns
-LOSS_SHAPES = [(8, 97, 97, 19, 8), (2, 5, 7, 4, 3), (1, 9, 9, 6, 4)]  # B, h, w, C, r
+# B, h, w, C, r of K5/K6: the 769² crops, small shapes, full frame (129 x 257
+# -> 1025 x 2049), ragged column tiles (94 -> 24, 24, 24, 22; 85 -> 43, 42 at
+# r = 4) and r = 256 (a tile's fine columns outnumber a block's threads); the
+# large ones at ratios of 2^n, where the plain version's F.interpolate
+# computes the source index exactly (at r = 3, W = 253 it misses by 1e-5)
+LOSS_SHAPES = [(8, 97, 97, 19, 8), (2, 5, 7, 4, 3), (1, 9, 9, 6, 4), (2, 129, 257, 19, 8),
+               (1, 5, 94, 19, 8), (2, 3, 85, 7, 4), (1, 2, 3, 3, 256)]
+LOSS_TIMED = {"769²": LOSS_SHAPES[0], "full frame": LOSS_SHAPES[3]}  # the train steps' shapes
+SPARSE_G = 0.02  # share of pixels with g != 0 in the sparse case (OHEM once trained)
 NLL_TOL = 1e-5        # K5: max abs err of the f32 nll
 NLL_GRAD_TOL = 1e-4   # K6: max abs err over max |plain grad|
+CRITERION_AB_REPS = 6  # timed criterion_ohem_dsn forward + backward of each route, in turns
 # train step, kernel route vs plain route from one state (bf16 model): the
 # plain route rounds the attention weights to bf16 in the forward; the
 # kernel route's backward takes delta = sum(out * g) from the bf16 output,
@@ -438,7 +459,7 @@ def phase_kernels() -> dict:
         for dtype, shape in cases:
             q, k, v = _inputs(shape, dtype, seed=sum(shape))
             q32, k32, v32 = q.float(), k.float(), v.float()
-            tc = K.kernel_design(q) == "tensor_core"
+            tc = dtype == torch.bfloat16  # every bf16 design rounds p as the TPU kernels
             tol = TC_TOL if tc else TOL[dtype]
             before = dict(K.LAUNCHES)
             col = K.cca_fwd_col(q, k, v)
@@ -447,9 +468,7 @@ def phase_kernels() -> dict:
             torch.cuda.synchronize()
             moved = {n: K.LAUNCHES[n] - before[n] for n in K.LAUNCHES}
             want = _cca_want(shape, dtype, fwd=1)  # the op's launches, K1/K2 or K7a
-            for name in ("cca_fwd_col", "cca_fwd_row"):  # and the wrappers' own
-                want[name] += 1
-                want[f"{name}_tc"] += tc
+            _add_natural(want, shape, dtype, "fwd")  # and the wrappers' own
             if moved != want:
                 raise RuntimeError(f"K1/K2 at {shape} {dtype} launched {moved}, not {want}")
             ins = (q, k, v) if tc else (q32, k32, v32)
@@ -487,7 +506,7 @@ def phase_kernels() -> dict:
                 for kern, key in (("K1", "cca_fwd_col"), ("K2", "cca_fwd_row")):
                     report[key] = {"max_abs_err": max(e for n, e in errs.items()
                                                       if n.startswith(kern))}
-            log(f"[kernels] {str(dtype)[6:]} {shape} {'tensor cores' if tc else 'CUDA cores'}: "
+            log(f"[kernels] {str(dtype)[6:]} {shape} {_designs(shape, dtype)}: "
                 f"ok (K1/K2 tol {tol:g} x scale, op {TOL[dtype]:g}) "
                 + " ".join(f"{n}={e:.2e}" for n, e in errs.items()) + flips)
 
@@ -558,7 +577,7 @@ def phase_bwd_kernels() -> dict:
         q, k, v = _inputs(shape, dtype, seed=sum(shape) + 1)
         g = _inputs(shape, dtype, seed=sum(shape) + 2)[2]
         q32, k32, v32, g32 = q.float(), k.float(), v.float(), g.float()
-        tc = K.kernel_design(q) == "tensor_core"
+        tc = dtype == torch.bfloat16  # every bf16 design rounds p and de as the TPU kernels
         tol = TC_TOL if tc else BWD_TOL[dtype]
         with torch.no_grad():
             out, m, L = K.criss_cross_attention_cuda(q, k, v)
@@ -568,8 +587,7 @@ def phase_bwd_kernels() -> dict:
             row = K.cca_bwd_row(q, k, v, g, m, L, delta, *col)
             torch.cuda.synchronize()
             moved = {n: K.LAUNCHES[n] - before[n] for n in K.LAUNCHES}
-            if moved != {**{n: 0 for n in K.LAUNCHES}, "cca_bwd_col": 1, "cca_bwd_row": 1,
-                         "cca_bwd_col_tc": int(tc), "cca_bwd_row_tc": int(tc)}:
+            if moved != _add_natural({n: 0 for n in K.LAUNCHES}, shape, dtype, "bwd"):
                 raise RuntimeError(f"K3/K4 at {shape} {dtype} launched {moved}")
             ins = (q, k, v, g) if tc else (q32, k32, v32, g32)
             col_p = K.cca_bwd_col_plain(*ins, m, L, delta)
@@ -593,7 +611,7 @@ def phase_bwd_kernels() -> dict:
             for kern, key in (("K3", "cca_bwd_col"), ("K4", "cca_bwd_row")):
                 report[key] = {"max_abs_err": max(e for n, e in errs.items()
                                                   if n.startswith(kern))}
-        log(f"[bwd] {str(dtype)[6:]} {shape} {'tensor cores' if tc else 'CUDA cores'}: ok "
+        log(f"[bwd] {str(dtype)[6:]} {shape} {_designs(shape, dtype)}: ok "
             f"(K3/K4 tol {tol:g} x scale, Function {BWD_TOL[dtype]:g}) "
             + " ".join(f"{n}={e:.2e}" for n, e in errs.items()))
         del q, k, v, g, out, m, L, delta, col, row, col_p, row_p, leaves, grads, grads_p
@@ -767,7 +785,7 @@ def phase_line_kernels() -> dict:
         return lambda *qkvgmld: [fn(*(view(t) for t in qkvgmld), masked)
                                  for _, masked, view in LINE_PATHS]
 
-    def k1_k4(q, k, v, g):  # the natural route forced at a long shape
+    def k1_k4(q, k, v, g):  # the natural route forced at a long shape (K7a/K7b's kernels)
         o, m_, L_ = K.cca_fwd_row(q, k, v, *K.cca_fwd_col(q, k, v))
         d = (g.float() * o.float()).sum(dim=-1)
         K.cca_bwd_row(q, k, v, g, m_, L_, d, *K.cca_bwd_col(q, k, v, g, m_, L_, d))
@@ -854,24 +872,32 @@ def phase_line_kernels() -> dict:
     return report
 
 
-def _loss_case(shape, seed):
+def _loss_case(shape, seed, live: float = 1.0):
+    """logits, int32 labels (15 % ignore) and g, nonzero on a share ``live``
+    of the pixels."""
     B, h, w, C, r = shape
     H, W = (h - 1) * r + 1, (w - 1) * r + 1
     rng = np.random.RandomState(seed)
     logits = torch.from_numpy(rng.randn(B, C, h, w).astype(np.float32)).cuda()
     labels = rng.randint(0, C, (B, H, W)).astype(np.int32)
     labels[rng.rand(B, H, W) < 0.15] = 255  # ignore pixels
-    g = torch.from_numpy(rng.rand(B, H, W).astype(np.float32)).cuda()
-    return logits, torch.from_numpy(labels).cuda(), g
+    g = rng.rand(B, H, W).astype(np.float32)
+    g[rng.rand(B, H, W) >= live] = 0.0
+    return logits, torch.from_numpy(labels).cuda(), torch.from_numpy(g).cuda()
 
 
 def phase_loss_kernels() -> dict:
-    """K5/K6 against the materialised upsample + NLL and its autograd."""
+    """K5/K6 against the materialised upsample + NLL and its autograd, int32
+    and uint8 labels, at every shape of LOSS_SHAPES, with a dense g and, at
+    the 769² shape, a g nonzero on SPARSE_G of the pixels and one zero
+    everywhere; then :func:`loss_times` and :func:`criterion_ab`."""
     from ccnet_tpu_torch.ops import upsampled_ce as U
 
-    report = {}
-    for shape in LOSS_SHAPES:
-        logits, labels, g = _loss_case(shape, seed=sum(shape))
+    errs = {}
+    cases = [(shape, 1.0) for shape in LOSS_SHAPES] + [(LOSS_SHAPES[0], SPARSE_G),
+                                                       (LOSS_SHAPES[0], 0.0)]
+    for shape, live in cases:
+        logits, labels, g = _loss_case(shape, seed=sum(shape), live=live)
         errs = {}
         for lab in (labels, labels.to(torch.uint8)):
             before = dict(U.LAUNCHES)
@@ -885,7 +911,9 @@ def phase_loss_kernels() -> dict:
                 raise RuntimeError(f"launch counts did not advance: {before} -> {U.LAUNCHES}")
             want_nll = U.upsampled_nll_reference(logits, lab)
             want_dl = U.upsampled_nll_bwd_plain(logits, lab, g)
-            tag = f"{shape} {str(lab.dtype)[6:]} labels"
+            tag = f"{shape} {str(lab.dtype)[6:]} labels, g live on {live:.0%}"
+            if live == 0.0 and float(dl.abs().max()) != 0.0:
+                raise AssertionError(f"K6 at {tag}: a zero g gives a nonzero gradient")
             for name, got, want, tol in (("K5", nll, want_nll, NLL_TOL),
                                          ("fn.fwd", fn_nll, want_nll, NLL_TOL),
                                          ("K6", dl, want_dl, NLL_GRAD_TOL),
@@ -895,41 +923,127 @@ def phase_loss_kernels() -> dict:
                 if not err <= limit:
                     raise AssertionError(f"{name} at {tag}: max abs err {err:.3e} > {limit:.3e}")
                 errs[name] = max(errs.get(name, 0.0), err)
-        if shape == LOSS_SHAPES[0]:
-            report["upsampled_nll_fwd"] = {"max_abs_err": errs["K5"]}
-            report["upsampled_nll_bwd"] = {"max_abs_err": errs["K6"]}
-        log(f"[loss] {shape} (B, h, w, C, r), int32 and uint8 labels: ok (K5 <= {NLL_TOL:g} abs, "
-            f"K6 <= {NLL_GRAD_TOL:g} x max|plain grad|) "
+            del nll, dl, x, fn_nll, fn_dl, want_nll, want_dl
+        if shape == LOSS_SHAPES[0] and live == 1.0:
+            report = {"upsampled_nll_fwd": {"max_abs_err": errs["K5"]},
+                      "upsampled_nll_bwd": {"max_abs_err": errs["K6"]}}
+        log(f"[loss] {shape} (B, h, w, C, r), int32 and uint8 labels, g live on {live:.0%}: ok "
+            f"(K5 <= {NLL_TOL:g} abs, K6 <= {NLL_GRAD_TOL:g} x max|plain grad|) "
             + " ".join(f"{n}={e:.2e}" for n, e in errs.items()))
-
-    logits, labels, g = _loss_case(LOSS_SHAPES[0], seed=7)
-    report["upsampled_nll_fwd"]["ms"] = _time_ms(U.upsampled_nll_fwd, logits, labels)
-    report["upsampled_nll_fwd"]["plain_ms"] = _time_ms(U.upsampled_nll_reference, logits, labels)
-    report["upsampled_nll_bwd"]["ms"] = _time_ms(U.upsampled_nll_bwd, logits, labels, g)
-    graphs = []  # one graph per copy of the inputs, its backward timed alone
-    for lg, lab, gg in _copies((logits, labels, g)):
-        x = lg.clone().requires_grad_(True)
-        graphs.append((U.upsampled_nll_reference(x, lab), x, gg))
-    report["upsampled_nll_bwd"]["plain_ms"] = _time_ms(
-        lambda nll, x, g_: torch.autograd.grad(nll, x, g_, retain_graph=True), sets=graphs)
-    del graphs
-    # operations per fine pixel and class, the least the function needs: the
-    # height lerp (2), the width lerp shared by r rows (~1), exp and sum (2);
-    # the backward twice that (recompute, then the transposed lerps)
-    B, h, w, C, r = LOSS_SHAPES[0]
-    fine = B * ((h - 1) * r + 1) * ((w - 1) * r + 1) * C
-    report["upsampled_nll_fwd"].update(
-        _bound((logits, labels), (U.upsampled_nll_fwd(logits, labels),), 5 * fine, torch.float32))
-    report["upsampled_nll_bwd"].update(
-        _bound((logits, labels, g), (U.upsampled_nll_bwd(logits, labels, g),), 10 * fine,
-               torch.float32))
-    for name in ("upsampled_nll_fwd", "upsampled_nll_bwd"):
-        report[name]["library_ms"] = None  # F.interpolate + F.cross_entropy: two calls
-        log(f"[loss] {name} at {LOSS_SHAPES[0]}: kernel {report[name]['ms']:.4f} ms, "
-            f"plain (materialised F.interpolate + log_softmax) {report[name]['plain_ms']:.4f} ms "
-            f"(median of {TIMING_REPS}), bound {report[name]['bound_ms']:.4f} ms by "
-            f"{report[name]['bound_by']}; no one library call computes it")
+        del logits, labels, g
+        torch.cuda.empty_cache()
+    for name, r in loss_times().items():
+        report[name].update(r)
+    criterion_ab()
     return report
+
+
+def loss_times() -> dict:
+    """CUDA-event times of K5 and K6 and of their plain versions at the
+    shapes of LOSS_TIMED, K6 with a dense g and with one live on SPARSE_G of
+    the pixels, each beside its bound; returns the 769² numbers as the
+    report's. Uses only what every version of ``ccnet_tpu_torch`` has, so
+    it also times an earlier tree's kernels (run from its checkout)."""
+    from ccnet_tpu_torch.ops import upsampled_ce as U
+
+    report = {}
+    for tag, shape in LOSS_TIMED.items():
+        B, h, w, C, r = shape
+        t, b = {}, {}
+        for live in (1.0, SPARSE_G, 0.0):  # g = 0: K6's cost without a softmax
+            logits, labels, g = _loss_case(shape, seed=7, live=live)
+            kind = {1.0: "dense", SPARSE_G: "sparse", 0.0: "zero g"}[live]
+            t[f"K6 {kind}"] = _time_ms(U.upsampled_nll_bwd, logits, labels, g)
+            # the operations the function needs per live fine pixel and class:
+            # the height lerp (2), the width lerp shared by r rows (~1), exp
+            # and sum (2); the backward twice that (recompute, then the
+            # transposed lerps); every valid pixel's nll, the live pixels' grad
+            valid = int((labels != 255).sum())
+            active = int(((labels != 255) & (g != 0)).sum())
+            b[f"K6 {kind}"] = _bound((logits, labels, g), (U.upsampled_nll_bwd(logits, labels, g),),
+                                     10 * C * active, torch.float32)
+            if live == 1.0:
+                t["K5"] = _time_ms(U.upsampled_nll_fwd, logits, labels)
+                t["K5 plain"] = _time_ms(U.upsampled_nll_reference, logits, labels)
+                b["K5"] = _bound((logits, labels), (U.upsampled_nll_fwd(logits, labels),),
+                                 5 * C * valid, torch.float32)
+                graphs = []  # one graph per copy of the inputs, its backward timed alone
+                for lg, lab, gg in _copies((logits, labels, g)):
+                    x = lg.clone().requires_grad_(True)
+                    graphs.append((U.upsampled_nll_reference(x, lab), x, gg))
+                t["K6 plain"] = _time_ms(
+                    lambda nll, x, g_: torch.autograd.grad(nll, x, g_, retain_graph=True),
+                    sets=graphs)
+                del graphs
+            del logits, labels, g
+            torch.cuda.empty_cache()
+        log(f"[loss] times at {shape} (B, h, w, C, r) -> {tag}, ms (median of {TIMING_REPS}): "
+            + ", ".join(f"{n} {ms:.4f}" for n, ms in t.items())
+            + f"; K6 dense / sparse {t['K6 dense'] / t['K6 sparse']:.2f}; bounds "
+            + ", ".join(f"{n} {x['bound_ms']:.4f} ms by {x['bound_by']} ({x['bound_ms'] / t[n]:.1%} "
+                        f"of it; {x['bound_bytes'] / 1e6:.1f} MB, {x['bound_flops'] / 1e9:.2f} GFLOP)"
+                        for n, x in b.items()))
+        if shape == LOSS_SHAPES[0]:
+            for name, kern in (("upsampled_nll_fwd", "K5"), ("upsampled_nll_bwd", "K6 dense")):
+                plain = t[f"{kern.split()[0]} plain"]
+                report[name] = {"ms": t[kern], "plain_ms": plain, "library_ms": None, **b[kern],
+                                "share": b[kern]["bound_ms"] / t[kern],
+                                "design": "one block per (image, coarse band or row, tile of "
+                                          "coarse columns), the band in shared memory"}
+            report["upsampled_nll_bwd"]["sparse_ms"] = t["K6 sparse"]
+    for name in report:  # F.interpolate + F.cross_entropy: two calls
+        log(f"[loss] {name}: no one library call computes it")
+    return report
+
+
+def criterion_ab(reps: int = CRITERION_AB_REPS) -> dict:
+    """``criterion_ohem_dsn`` forward + backward at the 769² step's main and
+    DSN logits (8, 19, 97, 97) f32 and labels (8, 769, 769): the kernel
+    route (K5/K6) against the plain route (materialised upsample), the two
+    agreeing first, then timed in turns (kernel, plain, plain, kernel, ...)
+    after one untimed call of each; returns the medians (ms)."""
+    from ccnet_tpu_torch.losses import criterion_ohem_dsn
+
+    B, h, w, C, r = LOSS_SHAPES[0]
+    rng = np.random.RandomState(11)
+    heads = [torch.from_numpy(rng.randn(B, C, h, w).astype(np.float32)).cuda().requires_grad_(True)
+             for _ in range(2)]
+    H, W = (h - 1) * r + 1, (w - 1) * r + 1
+    y = rng.randint(0, C, (B, H, W)).astype(np.int32)
+    y[rng.rand(B, H, W) < 0.1] = 255
+    y = torch.from_numpy(y).cuda()
+
+    def step(impl):
+        loss = criterion_ohem_dsn({"main": heads[0], "aux": heads[1]}, y, impl=impl)
+        return (loss, *torch.autograd.grad(loss, heads))
+
+    got = {impl: step(impl) for impl in ("kernel", "torch")}
+    rel = abs(got["kernel"][0].item() - got["torch"][0].item()) / abs(got["torch"][0].item())
+    gerr = max((a - b).abs().max().item() / b.abs().max().item()
+               for a, b in zip(got["kernel"][1:], got["torch"][1:]))
+    del got
+    times = {"kernel": [], "torch": []}
+    for rep in range(reps):
+        for impl in ("kernel", "torch") if rep % 2 == 0 else ("torch", "kernel"):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            step(impl)
+            end.record()
+            end.synchronize()
+            times[impl].append(start.elapsed_time(end))
+    med = {impl: float(np.median(v)) for impl, v in times.items()}
+    log(f"[loss] criterion_ohem_dsn forward + backward at main/DSN {(B, C, h, w)} -> {H}x{W}, "
+        f"the two NLL routes in turns: kernel median {med['kernel']:.4f} ms, plain median "
+        f"{med['torch']:.4f} ms, kernel faster by {med['torch'] - med['kernel']:.4f} ms (CUDA "
+        f"events, {reps} each; kernel {' '.join(f'{v:.4f}' for v in times['kernel'])}; plain "
+        f"{' '.join(f'{v:.4f}' for v in times['torch'])}); loss rel diff {rel:.2e}, grads "
+        f"{gerr:.2e} x max")
+    if not rel <= 1e-4 or not gerr <= NLL_GRAD_TOL * 10:
+        raise AssertionError(f"criterion_ohem_dsn: kernel route disagrees (loss {rel:.2e}, "
+                             f"grads {gerr:.2e})")
+    del heads, y
+    torch.cuda.empty_cache()
+    return med
 
 
 # the probes: wrapper -> (the script's shape, the model's shape, input dtype);
@@ -1117,25 +1231,53 @@ def _counts() -> dict:
     return {n: c for counts in _launch_counts() for n, c in counts.items()}
 
 
+def _path_designs(shape, dtype) -> dict:
+    """{path: the design K1–K4 of that path take} for ``(B, H, W, Cq, Cv)``
+    features of ``dtype`` (``kernel_design``, from the path's own line)."""
+    from ccnet_tpu_torch.ops import cc_attention_cuda as K
+
+    q = torch.empty(shape[:3] + (shape[3],), dtype=dtype, device="meta")
+    return {path: K.kernel_design(q, path) for path in K.PATHS}
+
+
+def _designs(shape, dtype) -> str:
+    return ", ".join(f"{path} {d.replace('_', ' ')}"
+                     for path, d in _path_designs(shape, dtype).items())
+
+
+def _add_natural(want: dict, shape, dtype, d: str, n: int = 1) -> dict:
+    """Add to ``want`` the launches of ``n`` calls of K1 and K2 (``d`` =
+    ``"fwd"``) or K3 and K4 (``"bwd"``): each under its own name and, on the
+    tensor cores, under its design's count (``cca_{d}_{path}_tc`` for one
+    block per line, ``cca_line_{d}_tc`` for the line kernels, which bf16
+    lines past 128 take); the CUDA-core design (f32) has none."""
+    for path, design in _path_designs(shape, dtype).items():
+        want[f"cca_{d}_{path}"] += n
+        if design == "tensor_core":
+            want[f"cca_{d}_{path}_tc"] += n
+        elif design == "tensor_core_lines":
+            want[f"cca_line_{d}_tc"] += n
+    return want
+
+
 def _cca_want(shape, dtype, fwd: int = 0, bwd: int = 0) -> dict:
     """The attention kernels' launch counts of ``fwd`` forward and ``bwd``
     backward calls of the routed Function on ``(B, H, W, Cq, Cv)`` features
     of ``dtype``: each direction routed as the JAX package routes it
-    (``uses_line_route``), one launch of each of K1/K2 (K3/K4) per call, or
-    one of K7a (K7b) per path and call on the line route; bf16 launches on
-    the tensor cores (K1–K4 on lines of at most 128)."""
+    (``uses_line_route``), one launch of each of K1/K2 (K3/K4) per call
+    (:func:`_add_natural`), or one of K7a (K7b) per path and call on the
+    line route; every bf16 launch on the tensor cores."""
     from ccnet_tpu_torch.ops import cc_attention_cuda as K
 
     _, H, W, Cq, Cv = shape
     bf16 = dtype == torch.bfloat16
-    tc = bf16 and max(H, W) <= K.LONG_LINE
     want = {n: 0 for n in K.LAUNCHES}
     for d, n in (("fwd", fwd), ("bwd", bwd)):
         if K.uses_line_route(d, H, W, Cq, Cv, dtype):
-            want.update({f"cca_line_{d}": 2 * n, f"cca_line_{d}_tc": 2 * n * bf16})
+            want[f"cca_line_{d}"] += 2 * n
+            want[f"cca_line_{d}_tc"] += 2 * n * bf16
         else:
-            for path in ("col", "row"):
-                want.update({f"cca_{d}_{path}": n, f"cca_{d}_{path}_tc": n * tc})
+            _add_natural(want, shape, dtype, d, n)
     return want
 
 
@@ -1460,19 +1602,25 @@ def main(argv=None) -> None:
         sliding = phase_main_path(trained, "sliding")
         whole = phase_main_path(trained, "whole")
         msflip = phase_main_path(trained, "msflip")
+        heads = []
         for name in ("pspnet", "deeplabv3"):  # the heads without attention: K5/K6
             pth = os.path.join(tmp, f"{name}_r101_random.pth")
             random_pth(name, pth)
             phase_train_step(pth, TRAIN_BATCH, (CROP, CROP), name, profile=args.profile)
-            _, trained = phase_train_main_path(pth, os.path.join(tmp, f"snapshots_{name}"),
-                                               TRAIN_BATCH, (CROP, CROP), HEAD_TRAIN_STEPS, name)
+            head, trained = phase_train_main_path(pth, os.path.join(tmp, f"snapshots_{name}"),
+                                                  TRAIN_BATCH, (CROP, CROP), HEAD_TRAIN_STEPS,
+                                                  name)
+            heads.append(head)
             phase_main_path(trained, "sliding-png", name)
     # each kernel's launches in the main paths that run it: K1–K6 in the 769²
-    # cli.train run (K1/K2 plus the sliding evaluation's), K7a in the --whole
-    # and MS+flip evaluations and full-frame cli.train, K7b in full-frame
+    # cli.train run (K1/K2 plus the sliding evaluation's, K5/K6 plus
+    # full-frame, PSPNet's and DeepLabv3's cli.train), K7a in the --whole and
+    # MS+flip evaluations and full-frame cli.train, K7b in full-frame
     # cli.train, P1–P5 in cli.probe
     for name in ("cca_fwd_col", "cca_fwd_row", "cca_fwd_col_tc", "cca_fwd_row_tc"):
         launches[name] += sliding[name]
+    for name in ("upsampled_nll_fwd", "upsampled_nll_bwd"):
+        launches[name] += full_frame[name] + sum(head[name] for head in heads)
     for name in ("cca_line_fwd", "cca_line_fwd_tc"):
         launches[name] = whole[name] + msflip[name] + full_frame[name]
     for name in ("cca_line_bwd", "cca_line_bwd_tc"):

@@ -164,16 +164,25 @@ def test_bf16_column_path_at_h1_is_the_self_slot():
 
 
 def test_kernel_design_routes_by_dtype_and_line_length():
-    """K1–K4 take the tensor-core design for bf16 lines of at most LONG_LINE
-    on both paths (every call the Function makes there), the CUDA-core
-    kernels for f32 and longer lines; a forced K1/K2 design is checked on
-    every route, and either design's o_col is in v's dtype."""
+    """Each of K1–K4 picks its design from its own line (H for K1/K3, W for
+    K2/K4): bf16 lines of at most LONG_LINE the one-block-per-line tensor
+    cores, longer bf16 lines the tensor-core line kernels (the same
+    rounding function), f32 the CUDA-core kernels; a forced K1/K2 design is
+    checked on every route, and each design's o_col is in v's dtype."""
     z = lambda *s, dt=torch.bfloat16: torch.zeros(*s, dtype=dt)  # noqa: E731
-    assert K.kernel_design(z(8, 97, 97, 64)) == "tensor_core"
-    assert K.kernel_design(z(1, 128, 1, 4)) == "tensor_core"
-    assert K.kernel_design(z(8, 97, 97, 64, dt=torch.float32)) == "cuda_core"
-    assert K.kernel_design(z(1, 129, 257, 64)) == "cuda_core"
-    assert K.kernel_design(z(1, 7, 129, 64)) == "cuda_core"
+    for path in K.PATHS:
+        assert K.kernel_design(z(8, 97, 97, 64), path) == "tensor_core"
+        assert K.kernel_design(z(1, 128, 128, 4), path) == "tensor_core"
+        assert K.kernel_design(z(8, 97, 97, 64, dt=torch.float32), path) == "cuda_core"
+        assert K.kernel_design(z(1, 129, 257, 64), path) == "tensor_core_lines"
+        assert K.kernel_design(z(1, 400, 400, 4, dt=torch.float32), path) == "cuda_core"
+    # the forward at H = 129 and the model's widths: K1's columns are long, K2's rows are not
+    assert K.kernel_design(z(1, 129, 120, 64), "col") == "tensor_core_lines"
+    assert K.kernel_design(z(1, 129, 120, 64), "row") == "tensor_core"
+    assert K.kernel_design(z(1, 7, 129, 64), "col") == "tensor_core"
+    assert K.kernel_design(z(1, 7, 129, 64), "row") == "tensor_core_lines"
+    with pytest.raises(ValueError):
+        K.kernel_design(z(1, 7, 129, 64), "both")
     t32 = [z(1, 5, 6, 4, dt=torch.float32), z(1, 5, 6, 4, dt=torch.float32),
            z(1, 5, 6, 8, dt=torch.float32)]
     col = K.cca_fwd_col(*t32, design="cuda_core")
@@ -190,8 +199,14 @@ def test_kernel_design_routes_by_dtype_and_line_length():
     assert col[0].dtype == torch.bfloat16
     with pytest.raises(ValueError):  # K2 takes o_col in v's dtype, not f32
         K.cca_fwd_row(*t16, col[0].float(), *col[1:])
-    with pytest.raises(ValueError):  # a bf16 line past LONG_LINE has no tensor-core design
+    with pytest.raises(ValueError):  # a bf16 line past LONG_LINE has no one-block design
         K.cca_fwd_col(*(z(1, 129, 2, c) for c in (4, 4, 8)), design="tensor_core")
+    with pytest.raises(ValueError):  # ... and a short one no line-kernel design
+        K.cca_fwd_row(*t16, *col, design="tensor_core_lines")
+    t_long = [z(1, 129, 2, c) for c in (4, 4, 8)]  # the CPU route of the line design
+    col = K.cca_fwd_col(*t_long, design="tensor_core_lines")
+    assert col[0].dtype == torch.bfloat16
+    assert K.cca_fwd_row(*t_long, *col)[0].dtype == torch.bfloat16
 
 
 @pytest.mark.parametrize("shape", SHAPES)
@@ -305,17 +320,20 @@ def test_bf16_column_grads_vanish_at_h1():
 
 
 def test_bwd_design_routes_by_dtype_and_line_length():
-    """K3/K4 take the tensor-core design for bf16 lines of at most
-    LONG_LINE (every call the Function makes there), the CUDA-core pair for
-    f32 and longer lines, by the same rule as K1/K2; a forced design is
-    checked on every route."""
+    """K3/K4 take their design by the same rule as K1/K2, each from its own
+    line: the one-block tensor-core design for bf16 lines of at most
+    LONG_LINE, the tensor-core line kernels for longer bf16 lines, the
+    CUDA-core pair for f32; a forced design is checked on every route."""
     z = lambda *s, dt=torch.bfloat16: torch.zeros(*s, dtype=dt)  # noqa: E731
     t16 = [z(1, 5, 6, 4), z(1, 5, 6, 4), z(1, 5, 6, 8), z(1, 5, 6, 8), z(1, 5, 6, dt=torch.float32),
            z(1, 5, 6, dt=torch.float32) + 1, z(1, 5, 6, dt=torch.float32)]
-    assert K.kernel_design(t16[0]) == "tensor_core"
+    assert K.kernel_design(t16[0], "col") == "tensor_core"
     assert all(c.dtype == torch.bfloat16 for c in K.cca_bwd_col(*t16, design="tensor_core"))
-    assert K.kernel_design(z(1, 128, 128, 4)) == "tensor_core"
-    assert K.kernel_design(z(1, 129, 1, 4)) == "cuda_core"
+    assert K.kernel_design(z(1, 128, 128, 4), "row") == "tensor_core"
+    assert K.kernel_design(z(1, 129, 1, 4), "col") == "tensor_core_lines"
+    assert K.kernel_design(z(1, 129, 1, 4), "row") == "tensor_core"
+    with pytest.raises(ValueError):  # lines of 5 and 6 take the one-block design
+        K.cca_bwd_col(*t16, design="tensor_core_lines")
     t = [z(1, 5, 6, 4, dt=torch.float32), z(1, 5, 6, 4, dt=torch.float32),
          z(1, 5, 6, 8, dt=torch.float32), z(1, 5, 6, 8, dt=torch.float32),
          z(1, 5, 6, dt=torch.float32), z(1, 5, 6, dt=torch.float32) + 1,

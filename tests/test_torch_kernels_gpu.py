@@ -15,7 +15,9 @@ the same bf16 tensors, which round p (and de), o_col, the output and the
 grads where the kernels do, at 1e-2 x scale (f32 sums in another order flip
 a rounding here and there; K1/K2's bf16 outputs also bit-equal but for at
 most 1 % of their elements); the tensor-core K7a/K7b likewise, at 2^-8 x
-scale (K7a's o bit-equal but for 0.1 %) at the small line shapes;
+scale (K7a's o bit-equal but for 0.1 %) at the small line shapes, and
+K1–K4 on bf16 lines past 128 (which run on K7a's/K7b's kernels) at 1e-2
+x scale, K1's o_col and K2's out bit-equal but for 1 %;
 the model at 5e-2 x scale with argmax agreement >= 99.5 % (bf16
 layers after CCA). The loss kernels: K5 at 1e-5 abs, K6 at 1e-4 x
 max|plain grad|.
@@ -52,6 +54,26 @@ def cuda():
     return torch.device("cuda")
 
 
+def _want_natural(designs: dict, d: str, n: int) -> dict:
+    """The launch counts of ``n`` calls of each of K1 and K2 (``d`` =
+    ``"fwd"``) or K3 and K4 (``"bwd"``) in the designs ``{path: design}``:
+    each under its own name and its design's tensor-core count."""
+    want = {}
+    for path, design in designs.items():
+        for name in (f"cca_{d}_{path}", {"tensor_core": f"cca_{d}_{path}_tc",
+                                         "tensor_core_lines": f"cca_line_{d}_tc"}.get(design)):
+            if name:
+                want[name] = want.get(name, 0) + n
+    return want
+
+
+def _expected_designs(shape, dtype) -> dict:
+    if dtype == "float32":
+        return {"col": "cuda_core", "row": "cuda_core"}
+    return {p: "tensor_core" if n <= K.LONG_LINE else "tensor_core_lines"
+            for p, n in zip(K.PATHS, shape[1:3])}
+
+
 def case(seed, B, H, W, Cq, Cv):
     rng = np.random.RandomState(seed)
     return (rng.randn(B, H, W, Cq).astype(np.float32),
@@ -73,14 +95,12 @@ def test_kernels_match_plain(cuda, shape, dtype):
         pairs += zip(K.criss_cross_attention_cuda(q, k, v),
                      plain.criss_cross_attention_stats(q32, k32, v32))
     line = K.uses_line_route("fwd", *shape[1:], dtype=q.dtype)  # the op takes K7a, not K1/K2
-    tc = K.kernel_design(q) == "tensor_core"  # f32 and the long shape: CUDA cores
-    assert tc == (dtype == "bfloat16" and not line)
-    calls = 2 - line  # the wrappers' and the op's, or the wrappers' alone
-    assert K.LAUNCHES == {n: c + {"cca_fwd_col": calls, "cca_fwd_row": calls,
-                                  "cca_fwd_col_tc": calls * tc, "cca_fwd_row_tc": calls * tc,
-                                  "cca_line_fwd": 2 * line,
-                                  "cca_line_fwd_tc": 2 * line * (dtype == "bfloat16")}.get(n, 0)
-                          for n, c in before.items()}
+    designs = {p: K.kernel_design(q, p) for p in K.PATHS}  # f32: CUDA cores
+    assert designs == _expected_designs(shape, dtype)
+    want = _want_natural(designs, "fwd", 2 - line)  # the wrappers' and the op's, or theirs alone
+    want["cca_line_fwd"] = 2 * line
+    want["cca_line_fwd_tc"] = want.get("cca_line_fwd_tc", 0) + 2 * line * (dtype == "bfloat16")
+    assert K.LAUNCHES == {n: c + want.get(n, 0) for n, c in before.items()}
     for got, want in pairs:
         scale = max(1.0, want.abs().max().item())
         assert (got.float() - want).abs().max().item() <= tol * scale
@@ -126,11 +146,10 @@ def test_bwd_kernels_match_plain(cuda, shape, dtype):
         before = dict(K.LAUNCHES)
         col = K.cca_bwd_col(q, k, v, g, m, L, delta)
         row = K.cca_bwd_row(q, k, v, g, m, L, delta, *col)
-        tc = K.kernel_design(q) == "tensor_core"  # f32 and the long shape: CUDA cores
-        assert tc == (dtype == "bfloat16" and max(shape[1:3]) <= K.LONG_LINE)
-        assert K.LAUNCHES == {n: c + {"cca_bwd_col": 1, "cca_bwd_row": 1, "cca_bwd_col_tc": tc,
-                                      "cca_bwd_row_tc": tc}.get(n, 0)
-                              for n, c in before.items()}
+        designs = {p: K.kernel_design(q, p) for p in K.PATHS}  # f32: CUDA cores
+        assert designs == _expected_designs(shape, dtype)
+        want = _want_natural(designs, "bwd", 1)
+        assert K.LAUNCHES == {n: c + want.get(n, 0) for n, c in before.items()}
         pairs = list(zip(col, K.cca_bwd_col_plain(q32, k32, v32, g32, m, L, delta)))
         pairs += zip(row, K.cca_bwd_row_plain(q32, k32, v32, g32, m, L, delta, *col))
     leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
@@ -165,7 +184,7 @@ def test_tensor_core_fwd_matches_rounding_plain(cuda, shape):
     launch counts as the tensor-core design and allocates its three outputs
     and nothing else; K2 is fed K1's own outputs."""
     q, k, v = (torch.from_numpy(a).to(cuda, torch.bfloat16) for a in case(13, *shape))
-    assert K.kernel_design(q) == "tensor_core"
+    assert all(K.kernel_design(q, p) == "tensor_core" for p in K.PATHS)
     with torch.no_grad():
         before = dict(K.LAUNCHES)
         outs = []
@@ -201,7 +220,7 @@ def test_tensor_core_bwd_matches_rounding_plain(cuda, shape):
     tensor-core design and allocates its three outputs and nothing else."""
     q, k, v = (torch.from_numpy(a).to(cuda, torch.bfloat16) for a in case(11, *shape))
     g = torch.from_numpy(case(12, *shape)[2]).to(cuda, torch.bfloat16)
-    assert K.kernel_design(q) == "tensor_core"
+    assert all(K.kernel_design(q, p) == "tensor_core" for p in K.PATHS)
     with torch.no_grad():
         out, m, L = K.criss_cross_attention_cuda(q, k, v)
         delta = (g.float() * out.float()).sum(dim=-1)
@@ -223,6 +242,71 @@ def test_tensor_core_bwd_matches_rounding_plain(cuda, shape):
         assert got.dtype == want.dtype == torch.bfloat16 and got.shape == want.shape
         scale = max(1.0, want.float().abs().max().item())
         assert (got.float() - want.float()).abs().max().item() <= 1e-2 * scale
+
+
+# bf16 natural-route calls with lines past 128 (B, H, W, Cq, Cv): the forward
+# at H = 129 and the model's widths (K1's columns long, K2's rows not; the
+# backward takes the line route), narrow widths with lines of 129 to 400
+# (natural both ways at 300 x 200 and 300 x 129, the forward alone at 140 x 400)
+LONG_NATURAL_SHAPES = [(1, 129, 120, 64, 512), (2, 300, 200, 8, 16), (1, 300, 129, 8, 16),
+                       (1, 140, 400, 8, 16)]
+
+
+@pytest.mark.parametrize("shape", LONG_NATURAL_SHAPES)
+def test_long_bf16_natural_lines_run_tensor_core_line_kernels(cuda, shape):
+    """K1–K4 on bf16 lines longer than 128 launch K7a's/K7b's tensor-core
+    kernels (the CUDA-core K1–K4 only take f32): K1/K2's bf16 outputs
+    bit-equal to the rounding plain versions' but for at most 1 % of
+    flipped roundings, which the plain version that keeps p in f32 exceeds,
+    within 1e-2 x scale, and so are K3/K4's grads where the backward stays
+    natural; the routed Function launches the same kernels."""
+    q, k, v = (torch.from_numpy(a).to(cuda, torch.bfloat16) for a in case(19, *shape))
+    g = torch.from_numpy(case(20, *shape)[2]).to(cuda, torch.bfloat16)
+    designs = {p: K.kernel_design(q, p) for p in K.PATHS}
+    assert designs == _expected_designs(shape, "bfloat16")
+    assert "tensor_core_lines" in designs.values()
+    natural = {d: not K.uses_line_route(d, *shape[1:]) for d in K.DIRECTIONS}
+    assert natural["fwd"]
+    pairs = []
+    with torch.no_grad():
+        before = dict(K.LAUNCHES)
+        col = K.cca_fwd_col(q, k, v)
+        row = K.cca_fwd_row(q, k, v, *col)
+        assert K.LAUNCHES == {n: c + _want_natural(designs, "fwd", 1).get(n, 0)
+                              for n, c in before.items()}
+        want_col, want_row = K.cca_fwd_col_plain(q, k, v), K.cca_fwd_row_plain(q, k, v, *col)
+        t32 = [t.float() for t in (q, k, v)]
+        unrounded = K.cca_fwd_row_plain(*t32, *K.cca_fwd_col_plain(*t32))[0].to(torch.bfloat16)
+        assert col[0].dtype == row[0].dtype == torch.bfloat16
+        assert max(_flipped(col[0], want_col[0]), _flipped(row[0], want_row[0])) <= 1e-2
+        assert _flipped(unrounded, want_row[0]) > 1e-2
+        pairs += [*zip(col, want_col), *zip(row, want_row)]
+        out, m, L = row
+        delta = (g.float() * out.float()).sum(dim=-1)
+        if natural["bwd"]:
+            before = dict(K.LAUNCHES)
+            dcol = K.cca_bwd_col(q, k, v, g, m, L, delta)
+            drow = K.cca_bwd_row(q, k, v, g, m, L, delta, *dcol)
+            assert K.LAUNCHES == {n: c + _want_natural(designs, "bwd", 1).get(n, 0)
+                                  for n, c in before.items()}
+            pairs += [*zip(dcol, K.cca_bwd_col_plain(q, k, v, g, m, L, delta)),
+                      *zip(drow, K.cca_bwd_row_plain(q, k, v, g, m, L, delta, *dcol))]
+    for got, want in pairs:
+        assert got.dtype == want.dtype and got.shape == want.shape
+        assert torch.isfinite(got.float()).all()
+        scale = max(1.0, want.float().abs().max().item())
+        assert (got.float() - want.float()).abs().max().item() <= 1e-2 * scale
+    before = dict(K.LAUNCHES)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    torch.autograd.grad(K.criss_cross_attention_cuda(*leaves)[0], leaves, g)
+    want = _want_natural(designs, "fwd", 1)
+    if natural["bwd"]:
+        for n, c in _want_natural(designs, "bwd", 1).items():
+            want[n] = want.get(n, 0) + c
+    else:
+        want.update(cca_line_bwd=2, cca_line_bwd_tc=2)
+    # every K1–K4 launch counted under a tensor-core design: none on the CUDA cores
+    assert K.LAUNCHES == {n: c + want.get(n, 0) for n, c in before.items()}
 
 
 # the line route's shapes (B, H, W, Cq, Cv): the whole image at scales 1.0
@@ -338,20 +422,34 @@ def test_tensor_core_line_bwd_matches_rounding_plain(cuda, shape):
                 assert (a.float() - b.to(torch.bfloat16).float()).abs().max().item() <= tol * scale
 
 
-LOSS_SHAPES = [(8, 97, 97, 19, 8), (2, 5, 7, 4, 3), (1, 9, 9, 6, 4)]  # B, h, w, C, r
+# B, h, w, C, r: the 769² crops, small shapes, full frame (129 x 257 -> 1025 x
+# 2049), ragged column tiles (band_tile: 94 -> 24, 24, 24, 22; 85 -> 43, 42
+# at r = 4), and r = 256, whose tile's fine columns outnumber a block's
+# threads (ratios of 2^n, where F.interpolate's source index is exact: at r
+# = 3 and W = 253 the plain version's (w-1)/(W-1) is not, by 1e-5 in nll)
+LOSS_SHAPES = [(8, 97, 97, 19, 8), (2, 5, 7, 4, 3), (1, 9, 9, 6, 4), (2, 129, 257, 19, 8),
+               (1, 5, 94, 19, 8), (2, 3, 85, 7, 4), (1, 2, 3, 3, 256)]
+
+
+def _loss_case(shape, label_dtype, cuda, seed=7, live=1.0):
+    """logits, labels (15 % ignore) and g, nonzero on a share ``live`` of the
+    pixels as OHEM's g once the model is trained."""
+    B, h, w, C, r = shape
+    H, W = (h - 1) * r + 1, (w - 1) * r + 1
+    rng = np.random.RandomState(seed)
+    logits = torch.from_numpy(rng.randn(B, C, h, w).astype(np.float32)).to(cuda)
+    labels = rng.randint(0, C, (B, H, W)).astype(np.int32)
+    labels[rng.rand(B, H, W) < 0.15] = 255
+    labels = torch.from_numpy(labels.astype(label_dtype)).to(cuda)
+    g = rng.rand(B, H, W).astype(np.float32)
+    g[rng.rand(B, H, W) >= live] = 0.0
+    return logits, labels, torch.from_numpy(g).to(cuda)
 
 
 @pytest.mark.parametrize("label_dtype", ["int32", "uint8"])
 @pytest.mark.parametrize("shape", LOSS_SHAPES)
 def test_loss_kernels_match_plain(cuda, shape, label_dtype):
-    B, h, w, C, r = shape
-    H, W = (h - 1) * r + 1, (w - 1) * r + 1
-    rng = np.random.RandomState(7)
-    logits = torch.from_numpy(rng.randn(B, C, h, w).astype(np.float32)).to(cuda)
-    labels = rng.randint(0, C, (B, H, W)).astype(np.int32)
-    labels[rng.rand(B, H, W) < 0.15] = 255
-    labels = torch.from_numpy(labels.astype(label_dtype)).to(cuda)
-    g = torch.from_numpy(rng.rand(B, H, W).astype(np.float32)).to(cuda)
+    logits, labels, g = _loss_case(shape, label_dtype, cuda)
     before = dict(U.LAUNCHES)
     nll = U.upsampled_nll_fwd(logits, labels)
     dl = U.upsampled_nll_bwd(logits, labels, g)
@@ -360,6 +458,20 @@ def test_loss_kernels_match_plain(cuda, shape, label_dtype):
     want_dl = U.upsampled_nll_bwd_plain(logits, labels, g)
     assert (nll - want_nll).abs().max().item() <= 1e-5
     assert (dl - want_dl).abs().max().item() <= 1e-4 * want_dl.abs().max().item()
+
+
+@pytest.mark.parametrize("live", [0.02, 0.0])
+def test_loss_bwd_kernel_on_sparse_g(cuda, live):
+    """K6 skips the pixels with g == 0: g nonzero on 2 % of the pixels gives
+    the plain version's gradient, and a g that is zero everywhere a
+    gradient of exact zeros."""
+    logits, labels, g = _loss_case(LOSS_SHAPES[0], "int32", cuda, seed=9, live=live)
+    dl = U.upsampled_nll_bwd(logits, labels, g)
+    if live == 0.0:
+        assert float(dl.abs().max()) == 0.0
+        return
+    want = U.upsampled_nll_bwd_plain(logits, labels, g)
+    assert (dl - want).abs().max().item() <= 1e-4 * want.abs().max().item()
 
 
 def test_tiny_train_step_kernel_route_matches_plain(cuda):
