@@ -39,20 +39,39 @@
 // bytes they must move.
 //
 // probe_swap_leading: y[n, b, a, :] = x[n, a, b, :] for rows of R 16-byte
-// chunks (C bf16 values with C % 8 == 0). One block per (n, 8 a, 8 b)
-// tile: the 64 rows go through shared memory (512 bytes of each per pass),
-// loaded in x's order and stored in y's, with 16-byte loads and stores along
-// the row, so both sides are read and written in runs of whole rows. Bit
-// exact: it moves bytes.
+// chunks (C bf16 values with C % 8 == 0), bit exact: it moves bytes. A
+// swap of the two leading axes moves whole rows, so no chunk needs another
+// thread's data and nothing is staged in shared memory: consecutive threads
+// own consecutive 16-byte chunks of y (stores fully coalesced) and read x
+// in runs of R chunks (1 KB rows at the model's width). The destination ->
+// source map costs two divisions by multiply-shift (by R, then by A) in
+// 32-bit arithmetic within a plane (a plane's chunks fit 32 bits: in and
+// out would need 128 GB otherwise). The grid is (tiles of a plane, n).
 //
-// probe_scale: y = s x, one thread per element, the tail of the last block
-// masked. Exact for s = 2.
+// probe_scale: y = s x over n f32 values, exact for s = 2. A scalar head up
+// to x's first 16-byte boundary, a float4 body, and a scalar tail; y has
+// x's alignment modulo 16 bytes (the wrapper allocates it so), so one split
+// serves both.
+//
+// What bounds the two on the H100: HBM, 16 bytes read and 16 written per
+// chunk, no arithmetic to speak of. Both take one tile of COPY_THREADS x
+// COPY_UNROLL chunks per block, one chunk per thread: the loads in flight
+// come from occupancy (2048 threads on each SM). What chose that, timed in
+// turns on the card by chip_smoke.probe_variants (PERF.md §6): a grid of
+// one or four waves of resident blocks striding over the tiles was slower
+// than one tile per block (by 8 % on the scale at one wave), 2 or 4 loads
+// per thread before the stores bought nothing on the scale or P5's copy
+// (P2's small copy, whose time the host's pace sets, gains 0.3 us with 4),
+// and the streaming hints (ld.global.cs / st.global.cs) cost about 1 %, so
+// plain loads and stores. Both kernels keep a grid-stride loop, so
+// any grid covers the work; the plans (ops/probes.py swap_plan /
+// scale_plan, held on the CPU against the Pallas kernels and for covering
+// every element once) are computed in Python and passed as one struct, so
+// a launch is four or five ctypes arguments.
 
 #include "mma_bf16.cuh"
 
 namespace {
-
-constexpr int THREADS = 256;
 
 constexpr int MT = 64;            // query rows h per block: 4 warps x 16
 constexpr int NT = 64;            // key rows g per tile: 8 mma tiles of 8
@@ -113,39 +132,82 @@ mid_batch_dot_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
   }
 }
 
-constexpr int ST = 8;   // a and b per tile
-constexpr int SR = 32;  // 16-byte chunks of a row staged per pass
+constexpr int COPY_THREADS = 256;
+constexpr int COPY_UNROLL = 1;  // 16-byte loads per thread before its stores
 
-__global__ void __launch_bounds__(THREADS)
-swap_leading_kernel(const uint4* __restrict__ x, uint4* __restrict__ y, int A, int Bd, int R) {
-  __shared__ uint4 tile[ST * ST][SR];  // 32 KB
-  const int a0 = blockIdx.x * ST, b0 = blockIdx.y * ST;
-  const size_t plane = (size_t)A * Bd * R;
-  const uint4* xn = x + blockIdx.z * plane;
-  uint4* yn = y + blockIdx.z * plane;
-  for (int r0 = 0; r0 < R; r0 += SR) {
-    const int nr = min(SR, R - r0);
-    for (int i = threadIdx.x; i < ST * ST * SR; i += THREADS) {
-      const int row = i / SR, c = i % SR;
-      const int a = a0 + row / ST, b = b0 + row % ST;  // x's order: b fastest
-      if (c < nr && a < A && b < Bd) tile[row][c] = xn[((size_t)a * Bd + b) * R + r0 + c];
+}  // namespace
+
+// The launch plans of ops/probes.py (swap_plan, scale_plan), field for field.
+struct SwapPlan {
+  unsigned n, a, b, r;      // x (n, a, b, r chunks) -> y (n, b, a, r chunks)
+  unsigned r_mul, r_shift;  // i / r == (umulhi(i, r_mul) + i) >> r_shift
+  unsigned a_mul, a_shift;  // likewise i / a
+  unsigned blocks;          // grid (blocks, n)
+};
+
+struct ScalePlan {
+  unsigned long long head, body, tail;  // scalars to x's 16-byte boundary, float4s, scalars
+  unsigned blocks;
+};
+
+namespace {
+
+// i / d for every 32-bit i, with (mul, shift) from ops/probes.py fast_divider(d)
+__device__ __forceinline__ unsigned fast_div(unsigned i, unsigned mul, unsigned shift) {
+  return (unsigned)(((unsigned long long)__umulhi(i, mul) + i) >> shift);
+}
+
+__global__ void __launch_bounds__(COPY_THREADS)
+swap_leading_kernel(const uint4* __restrict__ x, uint4* __restrict__ y, SwapPlan p) {
+  const unsigned plane = p.a * p.b * p.r;
+  x += (size_t)blockIdx.y * plane;
+  y += (size_t)blockIdx.y * plane;
+  const unsigned step = gridDim.x * COPY_THREADS * COPY_UNROLL;
+  for (unsigned base = blockIdx.x * COPY_THREADS * COPY_UNROLL + threadIdx.x; base < plane;
+       base += step) {
+    uint4 v[COPY_UNROLL];
+#pragma unroll
+    for (int u = 0; u < COPY_UNROLL; ++u) {
+      const unsigned i = base + u * COPY_THREADS;
+      if (i < plane) {
+        const unsigned row = fast_div(i, p.r_mul, p.r_shift);  // y's row: b * A + a
+        const unsigned b = fast_div(row, p.a_mul, p.a_shift);
+        const unsigned a = row - b * p.a;
+        v[u] = x[(a * p.b + b) * p.r + (i - row * p.r)];
+      }
     }
-    __syncthreads();
-    for (int i = threadIdx.x; i < ST * ST * SR; i += THREADS) {
-      const int row = i / SR, c = i % SR;
-      const int ib = row / ST, ia = row % ST;  // y's order: a fastest
-      const int a = a0 + ia, b = b0 + ib;
-      if (c < nr && a < A && b < Bd)
-        yn[((size_t)b * A + a) * R + r0 + c] = tile[ia * ST + ib][c];
+#pragma unroll
+    for (int u = 0; u < COPY_UNROLL; ++u) {
+      const unsigned i = base + u * COPY_THREADS;
+      if (i < plane) y[i] = v[u];
     }
-    __syncthreads();
   }
 }
 
-__global__ void __launch_bounds__(THREADS)
-scale_kernel(const float* __restrict__ x, float* __restrict__ y, long long n, float s) {
-  const long long i = (long long)blockIdx.x * THREADS + threadIdx.x;
-  if (i < n) y[i] = x[i] * s;
+__global__ void __launch_bounds__(COPY_THREADS)
+scale_kernel(const float* __restrict__ x, float* __restrict__ y, ScalePlan p, float s) {
+  const float4* x4 = reinterpret_cast<const float4*>(x + p.head);
+  float4* y4 = reinterpret_cast<float4*>(y + p.head);
+  const size_t step = (size_t)gridDim.x * COPY_THREADS * COPY_UNROLL;
+  for (size_t base = (size_t)blockIdx.x * COPY_THREADS * COPY_UNROLL + threadIdx.x;
+       base < p.body; base += step) {
+    float4 v[COPY_UNROLL];
+#pragma unroll
+    for (int u = 0; u < COPY_UNROLL; ++u) {
+      const size_t i = base + u * COPY_THREADS;
+      if (i < p.body) v[u] = x4[i];
+    }
+#pragma unroll
+    for (int u = 0; u < COPY_UNROLL; ++u) {
+      const size_t i = base + u * COPY_THREADS;
+      if (i < p.body) y4[i] = make_float4(v[u].x * s, v[u].y * s, v[u].z * s, v[u].w * s);
+    }
+  }
+  if (blockIdx.x == 0 && threadIdx.x < p.head) y[threadIdx.x] = x[threadIdx.x] * s;
+  if (blockIdx.x == gridDim.x - 1 && threadIdx.x < p.tail) {
+    const size_t i = p.head + 4 * p.body + threadIdx.x;
+    y[i] = x[i] * s;
+  }
 }
 
 unsigned cdiv(long long a, long long b) { return (unsigned)((a + b - 1) / b); }
@@ -167,24 +229,31 @@ int probe_mid_batch_dot(const void* q, const void* k, void* e, int N, int T, int
   return (int)cudaGetLastError();
 }
 
-// x (N, A, Bd, row_bytes) -> y (N, Bd, A, row_bytes), both contiguous and
-// 16-byte aligned, row_bytes % 16 == 0. Returns cudaGetLastError().
-int probe_swap_leading(const void* x, void* y, int N, int A, int Bd, int row_bytes,
-                       void* stream) {
-  if (N < 1 || A < 1 || Bd < 1 || row_bytes < 16 || row_bytes % 16 != 0 || N > 65535 ||
-      (uintptr_t)x % 16 != 0 || (uintptr_t)y % 16 != 0)
+// x (n, a, b, r chunks) -> y (n, b, a, r chunks), both contiguous and
+// 16-byte aligned, as *plan says. Returns cudaGetLastError().
+int probe_swap_leading(const void* x, void* y, const SwapPlan* plan, void* stream) {
+  const SwapPlan p = *plan;
+  if (p.n < 1 || p.n > 65535 || p.a < 1 || p.b < 1 || p.r < 1 || p.blocks < 1 ||
+      p.r_shift > 31 || p.a_shift > 31 || (uintptr_t)x % 16 != 0 || (uintptr_t)y % 16 != 0 ||
+      (unsigned long long)p.a * p.b * p.r + (unsigned long long)p.blocks * COPY_THREADS *
+      COPY_UNROLL >= (1ull << 32))  // a plane's indices, one grid stride past its end
     return (int)cudaErrorInvalidValue;
-  dim3 grid(cdiv(A, ST), cdiv(Bd, ST), N);
-  swap_leading_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint4*>(x), static_cast<uint4*>(y), A, Bd, row_bytes / 16);
+  swap_leading_kernel<<<dim3(p.blocks, p.n), COPY_THREADS, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint4*>(x), static_cast<uint4*>(y), p);
   return (int)cudaGetLastError();
 }
 
-// y = s * x over n f32 values. Returns cudaGetLastError().
-int probe_scale(const void* x, void* y, long long n, float s, void* stream) {
-  if (n < 1) return (int)cudaErrorInvalidValue;
-  scale_kernel<<<cdiv(n, THREADS), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<float*>(y), n, s);
+// y = s * x over head + 4 body + tail f32 values split as *plan says; x + head
+// and y + head 16-byte aligned. Returns cudaGetLastError().
+int probe_scale(const void* x, void* y, const ScalePlan* plan, float s, void* stream) {
+  const ScalePlan p = *plan;
+  const uintptr_t body_x = (uintptr_t)x + 4 * p.head, body_y = (uintptr_t)y + 4 * p.head;
+  if (p.blocks < 1 || p.head > 3 || p.tail > 3 || p.head + p.body + p.tail < 1 ||
+      body_x % 16 != 0 || body_y % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  scale_kernel<<<p.blocks, COPY_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<float*>(y), p, s);
   return (int)cudaGetLastError();
 }
 

@@ -21,6 +21,16 @@ P1/P4 share one kernel, and P2/P5 another. The TPU kernels pad P4's and P5's
 outputs to a multiple of the 16-column tile; those rows are a block artefact
 that nothing reads, and the port returns only the ``W`` used columns.
 
+The copy and the scale take a launch plan computed here, by the pure
+functions :func:`swap_plan` and :func:`scale_plan`; :func:`swap_chunk_map`
+and :func:`scale_coverage` replay the kernels' loops over a plan, so the CPU
+tests hold that every element is written once, from the right source. The
+wrappers keep their host work small, since a call of a few microseconds on
+the card is paced by the host: the library is bound once, a plan is cached
+per shape (and the scale's offset) and passed as one struct, the stream is
+read as a raw handle, and the device is switched only when the tensor is
+not on the current one.
+
 A CUDA tensor launches the kernel; a CPU tensor takes the plain version. A
 wrong dtype, rank or layout raises on either device. Nothing falls back.
 """
@@ -28,6 +38,8 @@ wrong dtype, rank or layout raises on either device. Nothing falls back.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -35,22 +47,162 @@ import torch
 LAUNCHES = {"mid_batch_dot": 0, "swap_leading": 0, "scale_ragged": 0,
             "mid_batch_dot_4d": 0, "store_transposed": 0}
 
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _L, _U, _ULL = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_uint,
+                        ctypes.c_ulonglong)
+
+# csrc/probes.cu's block size and 16-byte loads per thread (copy and scale)
+COPY_THREADS, COPY_UNROLL = 256, 1
 
 
-def _lib():
-    from ccnet_tpu_torch.ops._build import load_library
+class SwapPlan(NamedTuple):
+    """``probe_swap_leading``'s launch: x ``(n, a, b, r chunks)`` → y ``(n,
+    b, a, r chunks)`` on a ``(blocks, n)`` grid; ``i // r`` and ``i // a`` by
+    :func:`fast_divider`'s multiplier and shift."""
+    n: int
+    a: int
+    b: int
+    r: int
+    r_mul: int
+    r_shift: int
+    a_mul: int
+    a_shift: int
+    blocks: int
 
-    lib = load_library("probes")
-    if not getattr(lib, "_ccnet_bound", False):
-        lib.probe_mid_batch_dot.argtypes = [_P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _P]
-        lib.probe_mid_batch_dot.restype = ctypes.c_int
-        lib.probe_swap_leading.argtypes = [_P, _P, _I, _I, _I, _I, _P]
-        lib.probe_swap_leading.restype = ctypes.c_int
-        lib.probe_scale.argtypes = [_P, _P, _L, ctypes.c_float, _P]
-        lib.probe_scale.restype = ctypes.c_int
-        lib._ccnet_bound = True
+
+class ScalePlan(NamedTuple):
+    """``probe_scale``'s launch: ``head`` scalars up to x's first 16-byte
+    boundary, ``body`` float4s, ``tail`` scalars, on ``blocks`` blocks."""
+    head: int
+    body: int
+    tail: int
+    blocks: int
+
+
+class _SwapPlanC(ctypes.Structure):
+    _fields_ = [(name, _U) for name in SwapPlan._fields]
+
+
+class _ScalePlanC(ctypes.Structure):
+    _fields_ = [("head", _ULL), ("body", _ULL), ("tail", _ULL), ("blocks", _U)]
+
+
+def fast_divider(d: int) -> tuple:
+    """``(mul, shift)`` with ``i // d == ((i * mul >> 32) + i) >> shift`` for
+    every ``0 <= i < 2**32`` and ``1 <= d < 2**31`` (the kernel adds in 64
+    bits): shift = ceil(log2 d), mul = floor(2^32 (2^shift − d) / d) + 1."""
+    if not 1 <= d < 2**31:
+        raise ValueError(f"divisor {d} outside [1, 2**31)")
+    shift = (d - 1).bit_length()
+    return (1 << 32) * ((1 << shift) - d) // d + 1, shift
+
+
+def fast_div(i, mul: int, shift: int):
+    """The kernel's ``fast_div`` on a Python int or an int64 tensor of values
+    below 2**32 (``umulhi`` in two 16-bit halves of ``mul``, exact in int64)."""
+    hi = (i * (mul >> 16) + ((i * (mul & 0xFFFF)) >> 16)) >> 16
+    return (hi + i) >> shift
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def swap_plan(n: int, a: int, b: int, r: int) -> SwapPlan:
+    """The copy's launch for x ``(n, a, b, r chunks)``: one tile of
+    ``COPY_THREADS·COPY_UNROLL`` chunks per block (the kernel's grid-stride
+    loop also covers a smaller grid: ``plan._replace(blocks=k)``)."""
+    plane = a * b * r
+    if not 1 <= n <= 65535 or min(a, b, r) < 1:
+        raise ValueError(f"swap of {(n, a, b, r)} chunks")
+    blocks = _cdiv(plane, COPY_THREADS * COPY_UNROLL)
+    if plane + blocks * COPY_THREADS * COPY_UNROLL >= 2**32:
+        raise ValueError(f"a plane of {plane} 16-byte chunks does not fit 32-bit indices")
+    return SwapPlan(n, a, b, r, *fast_divider(r), *fast_divider(a), blocks)
+
+
+def scale_plan(numel: int, offset: int) -> ScalePlan:
+    """The scale's launch for ``numel`` f32 values whose first lies
+    ``offset`` values (0–3) past a 16-byte boundary: one tile of
+    ``COPY_THREADS·COPY_UNROLL`` float4 per block."""
+    if numel < 1 or not 0 <= offset < 4:
+        raise ValueError(f"scale of {numel} values at offset {offset}")
+    head = min(numel, (4 - offset) % 4)
+    body = (numel - head) // 4
+    blocks = max(1, _cdiv(body, COPY_THREADS * COPY_UNROLL))
+    if blocks >= 2**31:
+        raise ValueError(f"{numel} values need more than 2**31 - 1 blocks")
+    return ScalePlan(head, body, numel - head - 4 * body, blocks)
+
+
+def _grid_stride(blocks: int, size: int) -> torch.Tensor:
+    """Every index ``base + u·COPY_THREADS`` the kernels' grid-stride loop
+    visits below ``size``, over all blocks and threads, in int64."""
+    per_block = COPY_THREADS * COPY_UNROLL
+    start = (torch.arange(blocks)[:, None] * per_block + torch.arange(COPY_THREADS)).reshape(-1)
+    rounds = max(1, _cdiv(size, blocks * per_block))
+    base = (start[:, None] + torch.arange(rounds) * blocks * per_block).reshape(-1)
+    base = base[base < size]
+    i = (base[:, None] + torch.arange(COPY_UNROLL) * COPY_THREADS).reshape(-1)
+    return i[i < size]
+
+
+def swap_chunk_map(plan: SwapPlan) -> tuple:
+    """Replay ``swap_leading_kernel`` over ``plan``: ``(src, writes)``, for
+    each chunk of y (flat, int64) the chunk of x it copies and how many
+    threads store it."""
+    plane = plan.a * plan.b * plan.r
+    i = _grid_stride(plan.blocks, plane)
+    row = fast_div(i, plan.r_mul, plan.r_shift)
+    b = fast_div(row, plan.a_mul, plan.a_shift)
+    a = row - b * plan.a
+    src_plane = (a * plan.b + b) * plan.r + (i - row * plan.r)
+    n = torch.arange(plan.n)[:, None] * plane
+    src = torch.full((plan.n * plane,), -1, dtype=torch.int64)
+    src[(n + i).reshape(-1)] = (n + src_plane).reshape(-1)
+    writes = torch.bincount((n + i).reshape(-1), minlength=plan.n * plane)
+    return src, writes
+
+
+def scale_coverage(plan: ScalePlan) -> torch.Tensor:
+    """Replay ``scale_kernel`` over ``plan``: how many threads write each of
+    the ``head + 4·body + tail`` values."""
+    numel = plan.head + 4 * plan.body + plan.tail
+    body = plan.head + (4 * _grid_stride(plan.blocks, plan.body)[:, None]
+                        + torch.arange(4)).reshape(-1)
+    tail = plan.head + 4 * plan.body + torch.arange(plan.tail)
+    return torch.bincount(torch.cat([torch.arange(plan.head), body, tail]), minlength=numel)
+
+
+def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the argument and result types of a build of ``csrc/probes.cu``."""
+    lib.probe_mid_batch_dot.argtypes = [_P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _P]
+    lib.probe_swap_leading.argtypes = [_P, _P, ctypes.POINTER(_SwapPlanC), _P]
+    lib.probe_scale.argtypes = [_P, _P, ctypes.POINTER(_ScalePlanC), ctypes.c_float, _P]
+    for fn in (lib.probe_mid_batch_dot, lib.probe_swap_leading, lib.probe_scale):
+        fn.restype = ctypes.c_int
     return lib
+
+
+_LIB = None  # csrc/probes.cu, loaded and declared once
+
+
+def _lib() -> ctypes.CDLL:
+    global _LIB
+    if _LIB is None:
+        from ccnet_tpu_torch.ops._build import load_library
+
+        _LIB = declare(load_library("probes"))
+    return _LIB
+
+
+@functools.lru_cache(maxsize=256)
+def _swap_launch(n: int, a: int, b: int, r: int) -> _SwapPlanC:
+    return _SwapPlanC(*swap_plan(n, a, b, r))
+
+
+@functools.lru_cache(maxsize=256)
+def _scale_launch(numel: int, offset: int) -> _ScalePlanC:
+    return _ScalePlanC(*scale_plan(numel, offset))
 
 
 def _check(name: str, x: torch.Tensor, ndim: int, dtype: torch.dtype) -> str:
@@ -78,8 +230,10 @@ def _raise_on(rc: int, name: str) -> None:
     LAUNCHES[name] += 1
 
 
-def _stream():
-    return _P(torch.cuda.current_stream().cuda_stream)
+def _stream(device: int) -> int:
+    # the raw cudaStream_t of the current stream: torch.cuda.current_stream()
+    # builds a Stream object, several microseconds of a call of ~10
+    return torch._C._cuda_getCurrentRawStream(device)
 
 
 # ------------------------------------------------------------ plain versions
@@ -110,11 +264,13 @@ def scale_ragged_plain(x: torch.Tensor) -> torch.Tensor:
 
 def _dot(name: str, q: torch.Tensor, k: torch.Tensor, N: int, T: int, H: int, C: int,
          strides) -> torch.Tensor:
-    with torch.cuda.device(q.device):
-        e = torch.empty((N, T, H, H), device=q.device, dtype=torch.float32)
-        rc = _lib().probe_mid_batch_dot(_P(q.data_ptr()), _P(k.data_ptr()), _P(e.data_ptr()),
-                                        N, T, H, C, *strides, _stream())
-        _raise_on(rc, name)
+    device = q.get_device()
+    if device != torch.cuda.current_device():
+        with torch.cuda.device(device):
+            return _dot(name, q, k, N, T, H, C, strides)
+    e = torch.empty((N, T, H, H), device=q.device, dtype=torch.float32)
+    _raise_on(_lib().probe_mid_batch_dot(q.data_ptr(), k.data_ptr(), e.data_ptr(), N, T, H, C,
+                                         *strides, _stream(device)), name)
     return e
 
 
@@ -135,16 +291,18 @@ def mid_batch_dot_4d(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     return _dot("mid_batch_dot_4d", q, k, B, W, H, C, (H * W * C, W * C, C))
 
 
-def _swap(name: str, x: torch.Tensor, N: int, A: int, Bd: int) -> torch.Tensor:
+def _swap(name: str, x: torch.Tensor, N: int, A: int, Bd: int, out_shape) -> torch.Tensor:
     row_bytes = x.shape[-1] * x.element_size()
     if row_bytes % 16 or x.data_ptr() % 16:
         raise ValueError(f"{name}: rows of {row_bytes} bytes at {x.data_ptr():#x}; the "
                          f"kernel moves 16-byte chunks (C % 8 == 0, 16-byte aligned)")
-    with torch.cuda.device(x.device):
-        y = torch.empty((N, Bd, A, x.shape[-1]), device=x.device, dtype=x.dtype)
-        rc = _lib().probe_swap_leading(_P(x.data_ptr()), _P(y.data_ptr()), N, A, Bd,
-                                       row_bytes, _stream())
-        _raise_on(rc, name)
+    device = x.get_device()
+    if device != torch.cuda.current_device():
+        with torch.cuda.device(device):
+            return _swap(name, x, N, A, Bd, out_shape)
+    plan = _swap_launch(N, A, Bd, row_bytes // 16)
+    y = torch.empty(out_shape, device=x.device, dtype=x.dtype)
+    _raise_on(_lib().probe_swap_leading(x.data_ptr(), y.data_ptr(), plan, _stream(device)), name)
     return y
 
 
@@ -152,24 +310,33 @@ def swap_leading(x: torch.Tensor) -> torch.Tensor:
     """P2: ``(A, B, C)`` → ``(B, A, C)`` bf16."""
     if _check("swap_leading", x, 3, torch.bfloat16) == "cpu":
         return swap_leading_plain(x)
-    A, Bd, _ = x.shape
-    return _swap("swap_leading", x, 1, A, Bd)[0]
+    A, Bd, C = x.shape
+    return _swap("swap_leading", x, 1, A, Bd, (Bd, A, C))
 
 
 def store_transposed(x: torch.Tensor) -> torch.Tensor:
     """P5: NHWC ``(B, H, W, C)`` → column-major ``(B, W, H, C)`` bf16."""
     if _check("store_transposed", x, 4, torch.bfloat16) == "cpu":
         return store_transposed_plain(x)
-    B, H, W, _ = x.shape
-    return _swap("store_transposed", x, B, H, W)
+    B, H, W, C = x.shape
+    return _swap("store_transposed", x, B, H, W, (B, W, H, C))
 
 
 def scale_ragged(x: torch.Tensor) -> torch.Tensor:
-    """P3: ``2·x`` over ``(M, N)`` f32."""
+    """P3: ``2·x`` over ``(M, N)`` f32, at any 4-byte offset of x (the
+    output keeps x's offset modulo 16 bytes, so both split alike)."""
     if _check("scale_ragged", x, 2, torch.float32) == "cpu":
         return scale_ragged_plain(x)
-    with torch.cuda.device(x.device):
+    device = x.get_device()
+    if device != torch.cuda.current_device():
+        with torch.cuda.device(device):
+            return scale_ragged(x)
+    offset = x.data_ptr() % 16 // 4
+    plan = _scale_launch(x.numel(), offset)
+    if offset:
+        y = torch.empty(x.numel() + offset, device=x.device, dtype=x.dtype)[offset:].view(x.shape)
+    else:
         y = torch.empty_like(x)
-        rc = _lib().probe_scale(_P(x.data_ptr()), _P(y.data_ptr()), x.numel(), 2.0, _stream())
-        _raise_on(rc, "scale_ragged")
+    _raise_on(_lib().probe_scale(x.data_ptr(), y.data_ptr(), plan, 2.0, _stream(device)),
+              "scale_ragged")
     return y

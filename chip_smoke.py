@@ -56,9 +56,13 @@ failure raises and exits non-zero:
 7. probes vs plain: P1–P5 (``ccnet_tpu_torch/ops/probes.py``) at the shapes
    of ``scripts/probe_mosaic.py`` and at the model's (P4 at K1's column
    logits (8, 97, 97, 64), P5 at v (8, 97, 97, 512)): the copies and the
-   scale bit-exact, the dots at 1e-4 x scale; times; then the probe main
-   path, ``ccnet_tpu_torch.cli.probe.main``, prints five PASS lines and
-   launches each kernel;
+   scale bit-exact, the dots at 1e-4 x scale; times (``probe_times``: the
+   burst time, and the device µs per call from ``torch.profiler`` beside
+   the host µs per call of back-to-back calls, of the kernel and of the one
+   library call, which says whether the device or the host's pace sets
+   the time); then the probe main path,
+   ``ccnet_tpu_torch.cli.probe.main``, prints five PASS lines and launches
+   each kernel;
 8. full model: CCNet-R101 R=2 bf16 with seeded random weights (``gamma`` =
    0.5, so the attention moves the logits), kernel route vs plain route on
    one (8, 3, 769, 769) batch (K1/K2) and on one (1, 3, 1024, 2048) image
@@ -1057,12 +1061,234 @@ PROBES = {
     "store_transposed": ((2, 96, 33, 512), (8, 97, 97, 512), torch.bfloat16),
 }
 PROBE_DOT_TOL = 1e-4  # x scale: the same bf16 products, f32 sums in another order
+PROBE_HOST_CALLS = 200  # back-to-back calls timed on the host's clock
+PROBE_TRACE_CALLS = 20  # back-to-back calls traced by torch.profiler
+
+
+def _probe_inputs(name: str, shape) -> list:
+    _, _, dtype = PROBES[name]
+    rng = np.random.RandomState(sum(shape))
+    return [torch.from_numpy(rng.randn(*shape).astype(np.float32)).to("cuda", dtype)
+            for _ in range(2 if "dot" in name else 1)]
+
+
+def _probe_library(name: str):
+    """The one PyTorch call computing probe ``name``'s function: a bf16
+    ``einsum`` for the dots, the plain version (``contiguous()``, ``2*x``)
+    for the copies and the scale."""
+    from ccnet_tpu_torch.ops import probes as P
+
+    if "dot" not in name:
+        return getattr(P, f"{name}_plain")
+    eq = "htc,gtc->thg" if name == "mid_batch_dot" else "bhwc,bgwc->bwhg"
+    return lambda *a: torch.einsum(eq, *a)
+
+
+def _device_us(fn, sets) -> tuple:
+    """(device µs per call, kernels per call) of PROBE_TRACE_CALLS
+    back-to-back ``fn`` calls under ``torch.profiler``, from the exported
+    chrome trace's kernel events (their device time alone). A trace now and
+    then comes back without its kernel events; it is taken again, up to
+    three times in all, and then reported as not measured (None, None)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    calls = itertools.cycle(sets)
+    for _ in range(3):
+        fn(*next(calls))
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as d:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                keep = [fn(*next(calls)) for _ in range(PROBE_TRACE_CALLS)]
+                torch.cuda.synchronize()
+            del keep
+            path = os.path.join(d, "trace.json")
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                durs = [e["dur"] for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"]
+        if durs:
+            return sum(durs) / PROBE_TRACE_CALLS, len(durs) / PROBE_TRACE_CALLS
+    log("[probe-times] torch.profiler recorded no kernel on the card in three traces: "
+        "device time not measured")
+    return None, None
+
+
+def _host_us(fn, sets) -> float:
+    """Host wall µs per call of back-to-back ``fn`` calls with no
+    synchronise between them, the pace at which the host issues the work
+    whatever the device does with it: the median over 10 rounds of
+    PROBE_HOST_CALLS / 10 calls (the host's cores are shared)."""
+    calls = itertools.cycle(sets)
+    for _ in range(3):
+        fn(*next(calls))
+    n, rounds = PROBE_HOST_CALLS // 10, []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn(*next(calls))
+        rounds.append((time.perf_counter() - t0) / n * 1e6)
+    torch.cuda.synchronize()
+    return float(np.median(rounds))
+
+
+def probe_times(names=tuple(PROBES)) -> dict:
+    """At the model's shapes, for each probe of ``names``: the burst time
+    of :func:`_time_ms` (``ms``) of the kernel, of its plain version and of
+    the one library call, and for the kernel and the library call the
+    device µs and host µs per call (:func:`_device_us`, :func:`_host_us`);
+    the burst time is about the larger of the two. Uses only what every
+    version of ``ccnet_tpu_torch.ops.probes`` has, so it also times an
+    earlier tree's kernels (run from its checkout)."""
+    from ccnet_tpu_torch.ops import probes as P
+
+    report = {}
+    for name in names:
+        shape = PROBES[name][1]
+        sets = _copies(_probe_inputs(name, shape))
+        kernel, plain, library = getattr(P, name), getattr(P, f"{name}_plain"), _probe_library(name)
+        r = {"ms": _time_ms(kernel, sets=sets), "library_ms": _time_ms(library, sets=sets)}
+        r["plain_ms"] = _time_ms(plain, sets=sets) if "dot" in name else r["library_ms"]
+        r["device_us"], r["kernels_per_call"] = _device_us(kernel, sets)
+        r["host_us"] = _host_us(kernel, sets)
+        r["library_device_us"], r["library_kernels_per_call"] = _device_us(library, sets)
+        r["library_host_us"] = _host_us(library, sets)
+        report[name] = r
+        us = {k: "not measured" if v is None else f"{v:.2f}" for k, v in r.items()}
+        log(f"[probe-times] {name} at {shape}: kernel burst {r['ms'] * 1e3:.2f} µs/call, device "
+            f"{us['device_us']} µs/call ({us['kernels_per_call']} kernels), host "
+            f"{us['host_us']} µs/call; library burst {r['library_ms'] * 1e3:.2f}, device "
+            f"{us['library_device_us']} ({us['library_kernels_per_call']} kernels), host "
+            f"{us['library_host_us']}; plain burst {r['plain_ms'] * 1e3:.2f} (bursts: median "
+            f"of {TIMING_REPS}; device: {PROBE_TRACE_CALLS} calls under torch.profiler; host: "
+            f"median of 10 rounds of {PROBE_HOST_CALLS // 10} calls, no synchronise)")
+        del sets
+    torch.cuda.empty_cache()
+    return report
+
+
+# design variants of csrc/probes.cu's copy and scale kernels, as text edits
+# of the source: (old, new) pairs, each of which must occur
+PROBE_VARIANTS = {
+    "streaming hints": [
+        ("v[u] = x[(a * p.b + b) * p.r + (i - row * p.r)];",
+         "v[u] = __ldcs(&x[(a * p.b + b) * p.r + (i - row * p.r)]);"),
+        ("if (i < plane) y[i] = v[u];", "if (i < plane) __stcs(&y[i], v[u]);"),
+        ("if (i < p.body) v[u] = x4[i];", "if (i < p.body) v[u] = __ldcs(&x4[i]);"),
+        ("if (i < p.body) y4[i] = make_float4(v[u].x * s, v[u].y * s, v[u].z * s, v[u].w * s);",
+         "if (i < p.body) __stcs(&y4[i], make_float4(v[u].x * s, v[u].y * s, v[u].z * s, "
+         "v[u].w * s));")],
+    "128 threads x 2 loads": [
+        ("constexpr int COPY_THREADS = 256;", "constexpr int COPY_THREADS = 128;"),
+        ("constexpr int COPY_UNROLL = 1;", "constexpr int COPY_UNROLL = 2;")],
+    "256 threads x 4 loads": [("constexpr int COPY_UNROLL = 1;", "constexpr int COPY_UNROLL = 4;")],
+}
+
+
+def probe_variants(rounds: int = 2) -> dict:
+    """Device µs (:func:`_device_us`) of the probe copy (P2 and P5 at the
+    model's shapes) and scale (P3) kernels: this source's design, the
+    variants of PROBE_VARIANTS (each built by its own ``nvcc``), this design
+    on grids of one and of four waves (2048 threads on each SM) striding
+    over the tiles instead of one tile per block, and the one library call;
+    each checked bit-exact, all timed in ``rounds`` turns (the order
+    reversed every other round). Returns {(variant, grid, probe): [µs]}."""
+    import ctypes
+    import shutil
+    from concurrent.futures import ThreadPoolExecutor
+
+    from ccnet_tpu_torch.ops import _build
+    from ccnet_tpu_torch.ops import probes as P
+
+    source = (_build.CSRC / "probes.cu").read_text()
+    root = _build.BUILD_DIR / "variants"
+
+    def build(name):
+        text = source
+        for old, new in PROBE_VARIANTS.get(name, ()):
+            if old not in text:
+                raise RuntimeError(f"variant {name!r}: {old!r} not in csrc/probes.cu")
+            text = text.replace(old, new)
+        d = root / name.replace(" ", "_")
+        d.mkdir(parents=True, exist_ok=True)
+        for f in _build.CSRC.glob("*.cuh"):
+            shutil.copy(f, d / f.name)
+        (d / "probes.cu").write_text(text)
+        so = d / "libprobes.so"
+        proc = subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", str(so),
+                               str(d / "probes.cu")], capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for variant {name!r}:\n{proc.stderr}")
+        threads, unroll = (int(text.split(f"constexpr int {k} = ")[1].split(";")[0])
+                           for k in ("COPY_THREADS", "COPY_UNROLL"))
+        return name, (P.declare(ctypes.CDLL(str(so))), threads, unroll)
+
+    names = ["this design", *PROBE_VARIANTS]
+    with ThreadPoolExecutor(len(names)) as ex:
+        libs = dict(ex.map(build, names))
+    wave = torch.cuda.get_device_properties(0).multi_processor_count * 2048
+    cases = {"swap_leading": (1, 97, 97), "store_transposed": (8, 97, 97), "scale_ragged": None}
+    sets = {name: _copies(_probe_inputs(name, PROBES[name][1])) for name in cases}
+    runs = [(v, "one tile per block") for v in names]
+    runs += [("this design", g) for g in ("1 wave", "4 waves")] + [("library", "one call")]
+
+    def launcher(variant, grid, name):
+        if variant == "library":
+            return _probe_library(name)
+        lib, threads, unroll = libs[variant]
+        waves = {"1 wave": 1, "4 waves": 4}.get(grid)
+        x = sets[name][0][0]
+        if name == "scale_ragged":  # fresh tensors: 16-byte aligned, no head
+            body = x.numel() // 4
+            plan = P.ScalePlan(0, body, x.numel() % 4, -(-body // (threads * unroll)))
+            if waves:
+                plan = plan._replace(blocks=min(plan.blocks, waves * wave // threads))
+            c = P._ScalePlanC(*plan)
+            return lambda t: _probe_call(lib.probe_scale, t, torch.empty_like(t), c, 2.0)
+        n, a, b = cases[name]
+        r = x.shape[-1] // 8
+        plan = P.SwapPlan(n, a, b, r, *P.fast_divider(r), *P.fast_divider(a),
+                          -(-a * b * r // (threads * unroll)))
+        if waves:
+            plan = plan._replace(blocks=max(1, min(plan.blocks, waves * wave // threads // n)))
+        c = P._SwapPlanC(*plan)
+        shape = (b, a, x.shape[-1]) if n == 1 else (n, b, a, x.shape[-1])
+        return lambda t: _probe_call(lib.probe_swap_leading, t,
+                                     torch.empty(shape, device=t.device, dtype=t.dtype), c)
+
+    times = {}
+    for rnd in range(rounds):
+        for variant, grid in (runs if rnd % 2 == 0 else runs[::-1]):
+            for name in cases:
+                fn = launcher(variant, grid, name)
+                x = sets[name][0][0]
+                if not torch.equal(fn(x), getattr(P, f"{name}_plain")(x)):
+                    raise AssertionError(f"{name}, {variant} on {grid}: not bit-exact")
+                times.setdefault((variant, grid, name), []).append(_device_us(fn, sets[name])[0])
+    for name in cases:
+        log(f"[probe-variants] {name} at {PROBES[name][1]}, device µs per call ({rounds} rounds "
+            f"in turns): " + "; ".join(f"{v} on {g} " + " ".join(
+                "not measured" if t is None else f"{t:.2f}" for t in ts)
+                                       for (v, g, n), ts in times.items() if n == name))
+    del sets
+    torch.cuda.empty_cache()
+    return times
+
+
+def _probe_call(fn, x, y, *args):
+    """One launch of a probe kernel variant on x into y; returns y."""
+    from ccnet_tpu_torch.ops import probes as P
+
+    rc = fn(x.data_ptr(), y.data_ptr(), *args, P._stream(x.get_device()))
+    if rc != 0:
+        raise RuntimeError(f"probe variant launch failed: CUDA error {rc}")
+    return y
 
 
 def phase_probes() -> dict:
     """P1–P5 against their plain versions at the script's and the model's
-    shapes (the copies and the scale bit-exact); at the model's shapes
-    times of kernel, plain version and one library call, and the bound."""
+    shapes (the copies and the scale bit-exact); at the model's shapes the
+    bound and :func:`probe_times`."""
     from ccnet_tpu_torch.ops import probes as P
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1071,9 +1297,7 @@ def phase_probes() -> dict:
         kernel, plain = getattr(P, name), getattr(P, f"{name}_plain")
         dot = "dot" in name
         for shape in (small, big):
-            rng = np.random.RandomState(sum(shape))
-            xs = [torch.from_numpy(rng.randn(*shape).astype(np.float32)).to("cuda", dtype)
-                  for _ in range(2 if dot else 1)]
+            xs = _probe_inputs(name, shape)
             before = P.LAUNCHES[name]
             got = kernel(*xs)
             torch.cuda.synchronize()
@@ -1086,26 +1310,24 @@ def phase_probes() -> dict:
                 raise AssertionError(f"{name} at {shape} is not bit-exact")
             else:
                 err = 0.0
-        # the model's shape: times and the bound. Operations: a multiply-add
-        # per channel of each logit; one multiply per scaled value; the copies
-        # do no arithmetic. The one library call of the dots is a bf16 einsum
-        # (bf16 output), of the copies and the scale the plain version itself
+        # the model's shape: the bound. Operations: a multiply-add per channel
+        # of each logit; one multiply per scaled value; the copies do no
+        # arithmetic
         flops = 2 * got.numel() * shape[-1] if dot else got.numel() * (name == "scale_ragged")
-        entry = {"max_abs_err": err, **_bound(xs, (got,), flops, dtype),
-                 "ms": _time_ms(kernel, *xs), "plain_ms": _time_ms(plain, *xs)}
-        if dot:
-            eq = "htc,gtc->thg" if len(shape) == 3 else "bhwc,bgwc->bwhg"
-            entry["library_ms"] = _time_ms(lambda *a: torch.einsum(eq, *a), *xs)
-        else:
-            entry["library_ms"] = entry["plain_ms"]
-        report[name] = entry
+        report[name] = {"max_abs_err": err, **_bound(xs, (got,), flops, dtype)}
+        if not dot:
+            report[name]["design"] = ("one 16-byte chunk per thread, one tile per block, "
+                                      "no staging")
         log(f"[probes] {name}: ok at {small} and {shape} {str(dtype)[6:]} "
-            f"({'<= %g x scale, err %.2e' % (PROBE_DOT_TOL, err) if dot else 'bit-exact'}); at "
-            f"{shape}: kernel {entry['ms']:.4f} ms, plain {entry['plain_ms']:.4f} ms, library "
-            f"{entry['library_ms']:.4f} ms, bound {entry['bound_ms']:.4f} ms by "
-            f"{entry['bound_by']} (median of {TIMING_REPS})")
+            f"({'<= %g x scale, err %.2e' % (PROBE_DOT_TOL, err) if dot else 'bit-exact'})")
         del xs, got, want
-    torch.cuda.empty_cache()
+    for name, r in probe_times().items():
+        e = report[name]
+        e.update(r)
+        log(f"[probes] {name} at {PROBES[name][1]}: kernel {e['ms']:.4f} ms, plain "
+            f"{e['plain_ms']:.4f} ms, library {e['library_ms']:.4f} ms, bound "
+            f"{e['bound_ms']:.4f} ms by {e['bound_by']} ({e['bound_ms'] / e['ms']:.1%} of it; "
+            f"median of {TIMING_REPS})")
     return report
 
 
@@ -1630,7 +1852,8 @@ def main(argv=None) -> None:
                 "replaces": replaces, "launches": launches[name],
                 **{key: report[name][key] for key in ("max_abs_err", "ms", "plain_ms",
                                                       "bound_ms", "bound_by", "library_ms")},
-                **{key: report[name][key] for key in ("design", "earlier_ms", "share", "tflops")
+                **{key: report[name][key] for key in ("design", "earlier_ms", "share", "tflops",
+                                                      "device_us", "host_us")
                    if key in report[name]}}
                for name, source, replaces in KERNELS]
     for k in kernels:  # K1–K4, K7a/K7b: how many of the path's launches took the tensor cores

@@ -506,9 +506,12 @@ def test_tiny_train_step_kernel_route_matches_plain(cuda):
 # ragged edges, and the model's (K1's column logits, the column-major copy of v)
 PROBE_DOT_SHAPES = [(96, 16, 64), (7, 3, 70)]                      # (H, T, C)
 PROBE_DOT4_SHAPES = [(2, 96, 33, 64), (8, 97, 97, 64), (1, 33, 5, 8)]  # (B, H, W, C)
-PROBE_SWAP_SHAPES = [(96, 16, 128), (9, 13, 8)]                    # (A, B, C)
-PROBE_STORE_SHAPES = [(2, 96, 33, 512), (8, 97, 97, 512), (1, 9, 17, 8)]
-PROBE_SCALE_SHAPES = [(97, 256), (1, 1), (3, 1000)]
+# rows of one 16-byte chunk (C = 8) over a large A x B
+PROBE_SWAP_SHAPES = [(96, 16, 128), (9, 13, 8), (1031, 517, 8)]     # (A, B, C)
+# B = 8 with a ragged W, as in the model's batch
+PROBE_STORE_SHAPES = [(2, 96, 33, 512), (8, 97, 97, 512), (1, 9, 17, 8), (8, 97, 33, 512)]
+# n = 1, 3, 5 (no float4 body) and 4k + 3 (a tail of 3)
+PROBE_SCALE_SHAPES = [(97, 256), (1, 1), (3, 1000), (1, 3), (5, 1), (7, 573)]
 
 
 def _probe_in(seed, shape, cuda, dtype=torch.bfloat16):
@@ -556,3 +559,19 @@ def test_probe_copies_are_bit_exact(cuda, kind, shape):
     assert P.LAUNCHES[kind] == before + 1
     want = getattr(P, f"{kind}_plain")(x)
     assert got.shape == want.shape and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+@pytest.mark.parametrize("shape", [(97, 256), (1, 7), (3, 5)])
+def test_probe_scale_at_unaligned_offset(cuda, offset, shape):
+    """A contiguous slice starting 4, 8 or 12 bytes past a 16-byte boundary:
+    the scalar head runs up to the boundary, and the output is split alike."""
+    from ccnet_tpu_torch.ops import probes as P
+
+    n = shape[0] * shape[1]
+    x = _probe_in(16, (n + 4,), cuda, torch.float32)[offset:offset + n].view(shape)
+    assert x.is_contiguous() and x.data_ptr() % 16 == 4 * offset
+    before = P.LAUNCHES["scale_ragged"]
+    got = P.scale_ragged(x)
+    assert P.LAUNCHES["scale_ragged"] == before + 1
+    assert got.shape == x.shape and torch.equal(got, P.scale_ragged_plain(x))
