@@ -59,8 +59,7 @@ def get_parser():
     p.add_argument("--save-preds", type=str2bool, default=True)
     p.add_argument("--fp32", type=str2bool, default=False,
                    help="f32 compute with TF32 off (default: bf16)")
-    p.add_argument("--num-workers", type=int, default=4,
-                   help="accepted for the JAX CLI's surface; the port's loader is sequential")
+    p.add_argument("--num-workers", type=int, default=4, help="sample decode threads")
     p.add_argument("--data-parallel", type=str2bool, default=True,
                    help="no-op on one device; multi-GPU is not ported yet")
     p.add_argument("--space", type=int, default=1,
@@ -110,7 +109,8 @@ def main(argv=None):
     else:
         dataset = CityscapesDataset(args.data_dir, args.data_list, split=args.split,
                                     raw_dtype="uint8")
-    loader = DataLoader(dataset, args.batch_size, shuffle=False, drop_last=False)
+    loader = DataLoader(dataset, args.batch_size, shuffle=False, num_workers=args.num_workers,
+                        drop_last=False)
 
     evaluator = Evaluator(
         apply_fn, num_classes=args.num_classes, tile_hw=(h, w),

@@ -16,8 +16,10 @@ with the on-device augmentation.
 
 Not ported yet (they raise): ``--dataset voc``, ``--augment-backend
 native``, ``--remat`` other than ``none``, ``--tensorboard`` and
-``--profile-steps``. ``--num-workers`` and ``--cache-decoded`` are accepted
-for the JAX CLI's surface; the loader is single-threaded and caches nothing.
+``--profile-steps``. ``--num-workers`` threads decode the samples, and
+``--cache-decoded`` keeps the decoded Cityscapes samples in host memory
+(``CachedDataset``, raw samples before the augmentation), as in the JAX CLI;
+batches reach the card through ``device_prefetch``.
 """
 
 from __future__ import annotations
@@ -27,7 +29,13 @@ import argparse
 import torch
 
 from ccnet_tpu_torch.cli.common import str2bool
-from ccnet_tpu_torch.data import CityscapesDataset, DataLoader, SyntheticDataset, U8CropDataset
+from ccnet_tpu_torch.data import (
+    CachedDataset,
+    CityscapesDataset,
+    DataLoader,
+    SyntheticDataset,
+    U8CropDataset,
+)
 from ccnet_tpu_torch.train.trainer import TrainConfig, Trainer
 from ccnet_tpu_torch.utils import get_logger, resolve_device
 
@@ -67,8 +75,7 @@ def get_parser():
     p.add_argument("--resume", type=str2bool, default=False,
                    help="resume full train state from snapshot-dir")
     p.add_argument("--random-seed", type=int, default=304)
-    p.add_argument("--num-workers", type=int, default=8,
-                   help="accepted for the JAX CLI's surface; the port's loader is single-threaded")
+    p.add_argument("--num-workers", type=int, default=8, help="sample decode threads")
     p.add_argument("--fp32", type=str2bool, default=False,
                    help="f32 compute with TF32 off (default: bf16)")
     p.add_argument("--remat", type=str, default="none",
@@ -84,7 +91,7 @@ def get_parser():
     p.add_argument("--profile-steps", type=str, default=None,
                    help="start,stop step range (not ported yet)")
     p.add_argument("--cache-decoded", type=str2bool, default=True,
-                   help="accepted for the JAX CLI's surface; the port caches nothing yet")
+                   help="keep decoded raw samples in host RAM (CCNET_TPU_CACHE_GB budget)")
     p.add_argument("--synthetic", action="store_true", help="synthetic data smoke run")
     p.add_argument("--synthetic-size", type=str, default="1024,2048")
     p.add_argument("--device", type=str, default="cuda", help="cuda, cuda:N or cpu")
@@ -131,12 +138,15 @@ def main(argv=None):
     else:
         dataset = CityscapesDataset(args.data_dir, args.data_list, split="train",
                                     raw_dtype="uint8")
+        if args.cache_decoded:
+            dataset = CachedDataset(dataset)  # raw samples, before the augmentation
         if cfg.augment_backend == "host_u8":
             dataset = U8CropDataset(
                 dataset, crop_hw=(h, w), mean=tuple(cfg.mean), ignore_label=args.ignore_label,
                 scale=args.random_scale, mirror=args.random_mirror, scale_min=cfg.scale_min,
                 scale_steps=cfg.scale_steps, seed=args.random_seed)
-    loader = DataLoader(dataset, args.batch_size, shuffle=True, seed=args.random_seed)
+    loader = DataLoader(dataset, args.batch_size, shuffle=True, seed=args.random_seed,
+                        num_workers=args.num_workers)
     trainer = Trainer(cfg)
     result = trainer.run(loader)
     logger.info(f"training done: final step {result['final_step']}, "

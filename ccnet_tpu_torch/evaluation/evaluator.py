@@ -5,7 +5,10 @@ Counterpart of :mod:`ccnet_tpu.evaluation.evaluator` (the reference's
 ``(B, H, W, 3)``) go to ``device`` as they are; the f32 widen, the mean
 subtract, the multi-scale/flip sliding (or whole) prediction, the argmax
 and the confusion matrix all run there, under ``torch.inference_mode()``.
-Predictions come back to the host only when PNGs are asked for.
+:meth:`Evaluator.run` takes its batches through
+:func:`~ccnet_tpu_torch.data.loader.device_prefetch`, which pads and copies
+batch i+1 while batch i is predicted; predictions come back to the host
+only when PNGs are asked for, and a writer thread encodes them.
 """
 
 from __future__ import annotations
@@ -14,11 +17,14 @@ import json
 import os
 import os.path as osp
 import time
+from concurrent.futures import ThreadPoolExecutor
+from contextlib import closing
 from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from ccnet_tpu_torch.data.loader import HostToDevice, device_prefetch
 from ccnet_tpu_torch.data.palette import cityscapes_palette, save_indexed_png
 from ccnet_tpu_torch.data.preprocess import CITYSCAPES_MEAN_BGR
 from ccnet_tpu_torch.evaluation.metrics import ConfusionAccumulator, iou_from_confusion
@@ -76,12 +82,15 @@ class Evaluator:
         self.palette = palette
         self.device = torch.device(device)
         self._mean_dev = torch.as_tensor(self.mean, device=self.device)
+        self._copier = HostToDevice(self.device)
 
-    def place(self, images: np.ndarray, labels=None):
+    def place(self, images: np.ndarray, labels=None) -> tuple:
         """Bucket-pad on the host and copy to the device (uint8 or f32 as given).
 
-        Returns ``(dev_images, dev_labels_or_None, (H, W))``, with the original
-        size for cropping predictions back."""
+        Returns ``(Transfer of (dev_images,) or (dev_images, dev_labels),
+        (H, W))``, with the original size for cropping predictions back; it
+        runs on :func:`device_prefetch`'s thread, and the consumer waits on
+        the transfer."""
         images = np.asarray(images)
         B, H, W = images.shape[0], images.shape[1], images.shape[2]
         if self.bucket:
@@ -93,10 +102,8 @@ class Evaluator:
                                if images.dtype != np.float32 else self.mean)
                 padded[:, :H, :W] = images
                 images = padded
-        dev = torch.from_numpy(np.ascontiguousarray(images)).to(self.device)
-        devl = (torch.from_numpy(np.ascontiguousarray(labels)).to(self.device)
-                if labels is not None else None)
-        return dev, devl, (H, W)
+        arrays = (images,) if labels is None else (images, labels)
+        return self._copier(*arrays), (H, W)
 
     def _predict(self, images: torch.Tensor) -> torch.Tensor:
         """(B, H, W, 3) raw BGR on the device → (B, H, W) uint8 trainIds."""
@@ -108,7 +115,8 @@ class Evaluator:
     def predict_batch(self, images: np.ndarray) -> np.ndarray:
         """Raw BGR images (B, H, W, 3), f32 or uint8 → trainIds (B, H, W)."""
         with torch.inference_mode():
-            dev, _, (H, W) = self.place(images)
+            transfer, (H, W) = self.place(images)
+            dev, = transfer.wait()
             return self._predict(dev)[:, :H, :W].cpu().numpy()
 
     def run(self, loader, output_dir: Optional[str] = None, save_preds: bool = False,
@@ -118,20 +126,30 @@ class Evaluator:
         if output_dir:
             os.makedirs(output_dir, exist_ok=True)
         n_done = 0
-        marks = []  # (start, end) of each batch, from the host copy to the confusion update
-        with torch.inference_mode():
-            for images, labels, names in loader:
+        # (start, end) of each batch on the device, from its prediction to
+        # the confusion update, and its host time with the wait on the loader
+        marks, wall = [], []
+        writes = []
+        it = device_prefetch(iter(loader), self.place, depth=2)
+        with torch.inference_mode(), ThreadPoolExecutor(max_workers=1) as writer, closing(it):
+            t0 = time.perf_counter()
+            for transfer, (H, W), names in it:
+                dev_images, dev_labels = transfer.wait()
                 start = _mark(self.device)
-                dev_images, dev_labels, (H, W) = self.place(images, labels)
                 preds = self._predict(dev_images)[:, :H, :W]
                 acc.update(dev_labels, preds)
                 marks.append((start, _mark(self.device)))
-                if save_preds and output_dir:
+                if save_preds and output_dir:  # PNG encodes overlap the next batch
                     for p, name in zip(preds.cpu().numpy(), names):
-                        save_indexed_png(osp.join(output_dir, f"{name}.png"), p, palette)
+                        writes.append(writer.submit(
+                            save_indexed_png, osp.join(output_dir, f"{name}.png"), p, palette))
                 n_done += len(names)
                 if logger and n_done % log_every < len(names):
                     logger.info(f"eval {n_done} images, running meanIU {acc.result()[1]:.4f}")
+                wall.append(time.perf_counter() - t0)
+                t0 = time.perf_counter()
+        for w in writes:
+            w.result()  # raise a PNG write's error
         cm = acc.matrix()
         iu, mean_iu = iou_from_confusion(cm)
         result = {
@@ -139,6 +157,7 @@ class Evaluator:
             "IU_array": [float(x) for x in iu],
             "confusion": cm.tolist(),
             "batch_seconds": [_elapsed(a, b) for a, b in marks],
+            "wall_seconds": wall,
         }
         if self.class_names:
             result["per_class"] = {n: float(x) for n, x in zip(self.class_names, iu)}

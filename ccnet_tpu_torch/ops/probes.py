@@ -21,10 +21,11 @@ P1/P4 share one kernel, and P2/P5 another. The TPU kernels pad P4's and P5's
 outputs to a multiple of the 16-column tile; those rows are a block artefact
 that nothing reads, and the port returns only the ``W`` used columns.
 
-The copy and the scale take a launch plan computed here, by the pure
-functions :func:`swap_plan` and :func:`scale_plan`; :func:`swap_chunk_map`
-and :func:`scale_coverage` replay the kernels' loops over a plan, so the CPU
-tests hold that every element is written once, from the right source. The
+Each kernel takes a launch plan computed here, by the pure functions
+:func:`dot_plan`, :func:`swap_plan` and :func:`scale_plan`;
+:func:`dot_coverage`, :func:`swap_chunk_map` and :func:`scale_coverage`
+replay the kernels' loops over a plan, so the CPU tests hold that every
+element is written once, from the right source. The
 wrappers keep their host work small, since a call of a few microseconds on
 the card is paced by the host: the library is bound once, a plan is cached
 per shape (and the scale's offset) and passed as one struct, the stream is
@@ -52,6 +53,38 @@ _P, _I, _L, _U, _ULL = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes
 
 # csrc/probes.cu's block size and 16-byte loads per thread (copy and scale)
 COPY_THREADS, COPY_UNROLL = 256, 1
+# the dot's 16 x 16 output tiles a block holds per pass, channels staged per
+# chunk (rows padded by 8 bf16), and its two builds: warps per block -> blocks
+# resident per SM (128 registers a thread)
+DOT_TILES, DOT_KC = 64, 64
+DOT_DESIGNS = {8: 2, 16: 1}
+DOT_PASS_KEYS = 512  # keys staged per pass at most (two buffers of them fit shared memory)
+# an H100 SXM: its SMs and the dynamic shared memory a block may take
+H100_SMS, SMEM_MAX = 132, 232448
+
+
+class DotPlan(NamedTuple):
+    """``probe_mid_batch_dot``'s launch: ``items`` (line, band of ``band``
+    query rows) items, ``bands`` per line, on ``blocks`` blocks of ``warps``
+    warps (block b takes items b, b + blocks, ...); keys in passes of
+    ``group``; ``vec``: 16-byte ``cp.async`` staging; the band's f32 run of e takes
+    ``es_bytes`` of the ``smem`` bytes of shared memory, two staging
+    buffers the rest."""
+    sN: int
+    sH: int
+    sT: int
+    T: int
+    H: int
+    C: int
+    band: int
+    bands: int
+    group: int
+    vec: int
+    warps: int
+    es_bytes: int
+    smem: int
+    items: int
+    blocks: int
 
 
 class SwapPlan(NamedTuple):
@@ -76,6 +109,11 @@ class ScalePlan(NamedTuple):
     body: int
     tail: int
     blocks: int
+
+
+class _DotPlanC(ctypes.Structure):
+    _fields_ = [(name, _L) for name in DotPlan._fields[:3]] + [
+        (name, _I) for name in DotPlan._fields[3:-2]] + [("items", _U), ("blocks", _U)]
 
 
 class _SwapPlanC(ctypes.Structure):
@@ -105,6 +143,97 @@ def fast_div(i, mul: int, shift: int):
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
+
+
+def _ceil16(x: int) -> int:
+    return -(-x // 16) * 16
+
+
+def dot_smem(H: int, band: int, group: int) -> tuple:
+    """``(es_bytes, smem)`` of a dot block: the band's f32 run of e (placed
+    up to 3 floats in, at its offset modulo 16 bytes), then two staging
+    buffers of the band's q rows and a pass's key rows, each padded to 16
+    rows of DOT_KC + 8 bf16."""
+    es = _ceil16((band * H + 3) * 4)
+    return es, es + 2 * (_ceil16(band) + _ceil16(min(group, H))) * (DOT_KC + 8) * 2
+
+
+def dot_plan(N: int, T: int, H: int, C: int, strides, aligned: bool = True,
+             sms: int = H100_SMS) -> DotPlan:
+    """The dot's launch for N·T lines of H pixels and C channels at element
+    ``strides`` (sN, sH, sT); ``aligned``: q's and k's bases are 16-byte
+    aligned. Keys go in one pass up to DOT_PASS_KEYS, else in passes of
+    DOT_PASS_KEYS. Blocks of 8 warps, two per SM, when there are lines for
+    every SM; else of 16, one per SM, so that each line's work spreads over
+    more warps. A work item is a band of query rows of one line: the whole
+    line when it fits DOT_TILES tiles and shared memory and the lines fill
+    the card's resident blocks, else whole 16-row tiles, split so that the
+    items fill them, then fewer rows while the shared memory does not fit.
+    The grid is one block per resident slot (or per item, if fewer), each
+    looping over its items. Raises for a shape no band fits."""
+    sN, sH, sT = (int(x) for x in strides)
+    lines = N * T
+    if min(N, T, H, C) < 1:
+        raise ValueError(f"dot of {(N, T, H, C)}")
+    vec = int(aligned and C % 8 == 0 and all(x % 8 == 0 for x in (sN, sH, sT)))
+    warps = 8 if lines >= sms else 16
+    slots = sms * DOT_DESIGNS[warps]
+    tiles = -(-H // 16)
+    group = H if H <= DOT_PASS_KEYS else DOT_PASS_KEYS
+    group_tiles = -(-group // 16)
+    m_tiles = min(tiles, DOT_TILES // group_tiles)
+    m_tiles = min(m_tiles, -(-tiles // max(1, slots // lines)))
+    band = min(H, 16 * m_tiles)
+    while dot_smem(H, band, group)[1] > SMEM_MAX and band > 1:
+        band = _ceil16(band) - 16 if band > 16 else band - 1
+    es_bytes, smem = dot_smem(H, band, group)
+    bands = -(-H // band)
+    items = lines * bands
+    stages = items * -(-C // DOT_KC) * -(-H // group)
+    if smem > SMEM_MAX or stages + slots >= 2**32:
+        raise ValueError(f"dot of {(N, T, H, C)}: no band of query rows fits {SMEM_MAX} "
+                         f"bytes of shared memory and 2**32 stages")
+    return DotPlan(sN, sH, sT, T, H, C, band, bands, group, vec, warps, es_bytes, smem, items,
+                   min(items, slots))
+
+
+def dot_coverage(plan: DotPlan, lines=None) -> torch.Tensor:
+    """Replay ``mid_batch_dot_kernel`` over ``plan`` for its first ``lines``
+    lines (default all): for each logit of e, flat ``(lines, H, H)``, the
+    writes of its shared-memory cell by the warps' tiles, summed over the
+    blocks' visits of its item and the stores that copy that cell to it
+    (1 everywhere: each logit written once, from a cell written once)."""
+    H, band = plan.H, plan.band
+    lines = plan.items // plan.bands if lines is None else lines
+    visits = torch.bincount(torch.cat([torch.arange(b, plan.items, plan.blocks)
+                                       for b in range(plan.blocks)]), minlength=plan.items)
+    cover = torch.zeros(lines * H * H, dtype=torch.int32)
+    warp, i = torch.arange(plan.warps)[:, None], torch.arange(DOT_TILES // plan.warps)
+    rr, gg = torch.meshgrid(torch.arange(16), torch.arange(16), indexing="ij")
+    for b in range(plan.bands):
+        h0 = b * band
+        bh = min(band, H - h0)
+        es = torch.zeros(bh * H, dtype=torch.int32)
+        for g0 in range(0, H, plan.group):
+            nps = _ceil16(min(plan.group, H - g0)) // 16
+            tiles = _ceil16(bh) // 16 * nps
+            per = -(-tiles // plan.warps)
+            tile = warp * per + i
+            mine = tile[(i < per) & (tile < tiles)]
+            r = ((mine // nps) * 16)[:, None, None] + rr
+            g = g0 + ((mine % nps) * 16)[:, None, None] + gg
+            ok = (r < bh) & (g < H)
+            es += torch.bincount((r * H + g)[ok], minlength=bh * H).to(torch.int32)
+        run = bh * H
+        for line in range(lines):
+            start = line * H * H + h0 * H
+            head = min(run, (4 - start % 4) % 4)
+            body = (run - head) // 4
+            tail = run - head - 4 * body
+            j = torch.cat([torch.arange(head), head + torch.arange(4 * body),
+                           head + 4 * body + torch.arange(tail)])
+            cover[start + j] += es[j] * int(visits[line * plan.bands + b])
+    return cover
 
 
 def swap_plan(n: int, a: int, b: int, r: int) -> SwapPlan:
@@ -175,7 +304,9 @@ def scale_coverage(plan: ScalePlan) -> torch.Tensor:
 
 def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the argument and result types of a build of ``csrc/probes.cu``."""
-    lib.probe_mid_batch_dot.argtypes = [_P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _P]
+    lib.probe_mid_batch_dot.argtypes = [_P, _P, _P, ctypes.POINTER(_DotPlanC), _P]
+    lib.probe_mid_batch_dot_occupancy.argtypes = [_I, _I, ctypes.POINTER(_I)]
+    lib.probe_mid_batch_dot_occupancy.restype = ctypes.c_int
     lib.probe_swap_leading.argtypes = [_P, _P, ctypes.POINTER(_SwapPlanC), _P]
     lib.probe_scale.argtypes = [_P, _P, ctypes.POINTER(_ScalePlanC), ctypes.c_float, _P]
     for fn in (lib.probe_mid_batch_dot, lib.probe_swap_leading, lib.probe_scale):
@@ -193,6 +324,11 @@ def _lib() -> ctypes.CDLL:
 
         _LIB = declare(load_library("probes"))
     return _LIB
+
+
+@functools.lru_cache(maxsize=256)
+def _dot_launch(N: int, T: int, H: int, C: int, strides: tuple, aligned: bool) -> _DotPlanC:
+    return _DotPlanC(*dot_plan(N, T, H, C, strides, aligned))
 
 
 @functools.lru_cache(maxsize=256)
@@ -268,10 +404,22 @@ def _dot(name: str, q: torch.Tensor, k: torch.Tensor, N: int, T: int, H: int, C:
     if device != torch.cuda.current_device():
         with torch.cuda.device(device):
             return _dot(name, q, k, N, T, H, C, strides)
+    qp, kp = q.data_ptr(), k.data_ptr()
+    plan = _dot_launch(N, T, H, C, strides, qp % 16 == 0 and kp % 16 == 0)
     e = torch.empty((N, T, H, H), device=q.device, dtype=torch.float32)
-    _raise_on(_lib().probe_mid_batch_dot(q.data_ptr(), k.data_ptr(), e.data_ptr(), N, T, H, C,
-                                         *strides, _stream(device)), name)
+    _raise_on(_lib().probe_mid_batch_dot(qp, kp, e.data_ptr(), plan, _stream(device)), name)
     return e
+
+
+def dot_occupancy(warps: int, smem: int) -> int:
+    """Blocks of the dot kernel of ``warps`` warps resident on one SM of the
+    current card at ``smem`` bytes of dynamic shared memory (what
+    ``dot_plan`` assumes is ``DOT_DESIGNS[warps]``)."""
+    blocks = _I(0)
+    rc = _lib().probe_mid_batch_dot_occupancy(warps, smem, ctypes.byref(blocks))
+    if rc != 0:
+        raise RuntimeError(f"occupancy query failed: CUDA error {rc}")
+    return blocks.value
 
 
 def mid_batch_dot(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:

@@ -9,7 +9,10 @@ On a CUDA device the criss-cross attention (forward and backward) and the
 upsample+NLL loss (forward and backward) go through the hand-written
 kernels; ``impl="torch"`` takes the plain versions of both. ``model`` is
 ``ccnet``, ``pspnet`` or ``deeplabv3``; the last two have no attention, so
-``impl`` routes only their loss.
+``impl`` routes only their loss. The loader's batches reach the device
+through :func:`~ccnet_tpu_torch.data.loader.device_prefetch`: batch i+1 is
+copied (pinned buffers, a side stream) while step i runs, on every
+``augment_backend``; the augmentation runs on the device in the step.
 
 Not ported yet (they raise): ``augment_backend="native"``, ``remat`` other
 than off, ``tensorboard`` and ``profile_steps``; ``space`` > 1.
@@ -23,9 +26,9 @@ import time
 from dataclasses import dataclass
 from typing import Any, Optional, Tuple
 
-import numpy as np
 import torch
 
+from ccnet_tpu_torch.data.loader import HostToDevice, device_prefetch
 from ccnet_tpu_torch.data.preprocess import (
     CITYSCAPES_MEAN_BGR,
     device_augment_batch,
@@ -122,13 +125,17 @@ class Trainer:
         # schedule's own count
         self.state.step = self.start_step
         self.train_step = make_train_step(self.criterion, seed=c.seed + 2)
+        self._copier = HostToDevice(self.device)
 
-    def _prepare_batch(self, images, labels, step: int):
-        """Loader batch (host numpy, NHWC) → device ``(images (B, 3, H, W)
-        f32, labels (B, H, W) int32)``."""
+    def _place(self, images, labels) -> tuple:
+        """The loader batch's one host→device copy, on the prefetch thread:
+        ``(Transfer,)`` of the raw ``(images, labels)``."""
+        return (self._copier(images, labels),)
+
+    def _augment(self, images: torch.Tensor, labels: torch.Tensor, step: int):
+        """Placed raw batch (NHWC) → ``(images (B, 3, H, W) f32, labels
+        (B, H, W) int32)``, on the device, in the step."""
         c = self.cfg
-        images = torch.from_numpy(np.asarray(images)).to(self.device)
-        labels = torch.from_numpy(np.asarray(labels)).to(self.device)
         if c.augment_backend == "device":
             imgs, lbls = device_augment_batch(
                 images, labels, seed=c.seed + 1, step=step, crop_hw=tuple(c.input_size),
@@ -164,10 +171,11 @@ class Trainer:
     def _run(self, loader) -> dict:
         """Returns ``{"final_step", "final_loss", "losses", "step_seconds",
         "wall_seconds"}``: the loss of every step of this run (read from
-        the device at the end), each step's time from the batch's
-        host→device copy to the end of the update (CUDA events on a CUDA
-        device, the host clock on the CPU), and each step's host time
-        including the loader."""
+        the device at the end), each step's time from the augmentation to
+        the end of the update (CUDA events on a CUDA device, the host clock
+        on the CPU; the batch was copied to the device by the prefetch
+        thread while the previous step ran), and each step's host time
+        including the wait on the loader."""
         c = self.cfg
         cuda = self.device.type == "cuda"
         step = self.state.step
@@ -176,41 +184,48 @@ class Trainer:
         last_loss = float("nan")
         events, wall, losses = [], [], []
         last_t = time.perf_counter()
-        while step < c.num_steps:
-            if it is None:
-                loader.set_epoch(epoch)
-                it = iter(loader)
-            t0 = time.perf_counter()
-            try:
-                images, labels, _ = next(it)
-            except StopIteration:
-                epoch += 1
-                it = None
-                continue
-            if cuda:
-                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-                start.record()
-            else:
-                t_dev = time.perf_counter()
-            imgs, lbls = self._prepare_batch(images, labels, step)
-            metrics = self.train_step(self.state, imgs, lbls)
-            if cuda:
-                end.record()
-                events.append((start, end))
-            else:
-                events.append(time.perf_counter() - t_dev)
-            losses.append(metrics["loss"])
-            step = self.state.step
-            if step % c.log_every == 0 or step == c.num_steps:
-                last_loss = float(metrics["loss"])  # the one host sync of the loop
-                dt = (time.perf_counter() - last_t) / c.log_every
-                last_t = time.perf_counter()
-                lr = self.state.optimizer.param_groups[0]["lr"]
-                self.logger.info(f"step {step}/{c.num_steps} epoch {epoch} loss {last_loss:.4f} "
-                                 f"lr {lr:.3e} {dt:.3f} s/step {c.batch_size / dt:.2f} crops/s")
-            if step % c.save_every == 0 or step == c.num_steps:
-                self._save(step)
-            wall.append(time.perf_counter() - t0)
+        try:
+            while step < c.num_steps:
+                if it is None:
+                    loader.set_epoch(epoch)
+                    # batch i+1 is copied to the device while step i runs
+                    it = device_prefetch(iter(loader), self._place)
+                t0 = time.perf_counter()
+                try:
+                    transfer, _ = next(it)
+                except StopIteration:
+                    epoch += 1
+                    it = None
+                    continue
+                images, labels = transfer.wait()
+                if cuda:
+                    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                    start.record()
+                else:
+                    t_dev = time.perf_counter()
+                imgs, lbls = self._augment(images, labels, step)
+                metrics = self.train_step(self.state, imgs, lbls)
+                if cuda:
+                    end.record()
+                    events.append((start, end))
+                else:
+                    events.append(time.perf_counter() - t_dev)
+                losses.append(metrics["loss"])
+                step = self.state.step
+                if step % c.log_every == 0 or step == c.num_steps:
+                    last_loss = float(metrics["loss"])  # the one host sync of the loop
+                    dt = (time.perf_counter() - last_t) / c.log_every
+                    last_t = time.perf_counter()
+                    lr = self.state.optimizer.param_groups[0]["lr"]
+                    self.logger.info(f"step {step}/{c.num_steps} epoch {epoch} loss "
+                                     f"{last_loss:.4f} lr {lr:.3e} {dt:.3f} s/step "
+                                     f"{c.batch_size / dt:.2f} crops/s")
+                if step % c.save_every == 0 or step == c.num_steps:
+                    self._save(step)
+                wall.append(time.perf_counter() - t0)
+        finally:
+            if it is not None:  # stop the prefetch and loader threads of a cut epoch
+                it.close()
         if cuda:
             torch.cuda.synchronize(self.device)
             step_seconds = [a.elapsed_time(b) / 1000.0 for a, b in events]

@@ -60,9 +60,12 @@ failure raises and exits non-zero:
    burst time, and the device µs per call from ``torch.profiler`` beside
    the host µs per call of back-to-back calls, of the kernel and of the one
    library call, which says whether the device or the host's pace sets
-   the time); then the probe main path,
-   ``ccnet_tpu_torch.cli.probe.main``, prints five PASS lines and launches
-   each kernel;
+   the time; for P1/P4 beside the ``einsum``'s); the dot also at the
+   shapes that reach its other paths (one pixel, scalar staging for C % 8
+   != 0 and for a base 2 bytes past 16, bands past 64 tiles at H = 231,
+   three channel chunks at C = 136, P4's bands of a ragged line); then the
+   probe main path, ``ccnet_tpu_torch.cli.probe.main``, prints five PASS
+   lines and launches each kernel;
 8. full model: CCNet-R101 R=2 bf16 with seeded random weights (``gamma`` =
    0.5, so the attention moves the logits), kernel route vs plain route on
    one (8, 3, 769, 769) batch (K1/K2) and on one (1, 3, 1024, 2048) image
@@ -74,7 +77,9 @@ failure raises and exits non-zero:
    batch 8 of 769² (K1–K6);
 10. train main path: ``ccnet_tpu_torch.cli.train.main`` with ``--synthetic``,
     batch 8 of 769², OHEM, 4 steps from that ``.pth``; launch counts of
-    K1–K6; the exported ``CS_scenes_4.pth`` loads strictly;
+    K1–K6; the exported ``CS_scenes_4.pth`` loads strictly; the card's
+    s/step (CUDA events, augment + step: the batch was copied by the
+    prefetch thread) beside the median host wall s/step;
 11. full-frame training: 9 and 10 at batch 2 of 1025×2049 crops padded from
     the 1024×2048 images (features 129×257: K7a/K7b and K5/K6), 2 steps;
 12. evaluation main path: ``ccnet_tpu_torch.cli.evaluate.main`` on the
@@ -84,6 +89,8 @@ failure raises and exits non-zero:
     + flip whole image, scales 0.75–1.75, ``--save-preds 1`` (K7a at
     97×193 … 225×449), whose prediction PNGs are decoded with ``zlib``.
     Each run's launch counts must show that it went through its kernels;
+    the card's s/img (predict + confusion) beside the median host wall
+    s/img;
 13. PSPNet-R101 and DeepLabv3-R101 (bf16, seeded random weights): 9 and 10
     (2 steps) at batch 8 of 769² through K5/K6 (2 launches of each per step,
     none of the attention), and sliding ``cli.evaluate --model X
@@ -105,6 +112,14 @@ line of per-kernel results, then, as the last line,
 also profiles one kernel-route train step of CCNet (769², batch 8),
 PSPNet and DeepLabv3 and prints their top kernels by device time and the
 time of the attention kernels (``cca_*``) among them.
+
+    python3 chip_smoke.py --ab outputs/parent
+
+runs nothing of the above: it times P1/P4 (``probe_times``) and 4 steps of
+``cli.train --synthetic`` at batch 8 of 769² with ``--num-workers 8``
+(``train_wall``) in the checkout ``outputs/parent`` (a ``git archive`` of
+the parent commit) and in this one, in turns (parent, this, this, parent),
+each turn in its own process, and prints one ``[ab]`` JSON line per turn.
 """
 
 from __future__ import annotations
@@ -1061,6 +1076,12 @@ PROBES = {
     "store_transposed": ((2, 96, 33, 512), (8, 97, 97, 512), torch.bfloat16),
 }
 PROBE_DOT_TOL = 1e-4  # x scale: the same bf16 products, f32 sums in another order
+# the dot's other paths (csrc/probes.cu): (wrapper, shape, first element's offset);
+# one pixel, scalar staging (C % 8 != 0, or a base 2 bytes past 16), bands
+# past 64 tiles (H = 231), three channel chunks, P4 with bands of a ragged line
+PROBE_DOT_EDGES = [("mid_batch_dot", (1, 1, 8), 0), ("mid_batch_dot", (7, 3, 70), 0),
+                   ("mid_batch_dot", (97, 97, 64), 1), ("mid_batch_dot", (231, 2, 64), 0),
+                   ("mid_batch_dot", (97, 97, 136), 0), ("mid_batch_dot_4d", (1, 33, 5, 8), 0)]
 PROBE_HOST_CALLS = 200  # back-to-back calls timed on the host's clock
 PROBE_TRACE_CALLS = 20  # back-to-back calls traced by torch.profiler
 
@@ -1185,6 +1206,34 @@ PROBE_VARIANTS = {
 }
 
 
+def _probes_variant(name: str, edits) -> tuple:
+    """``csrc/probes.cu`` with the text ``edits`` ((old, new) pairs, each of
+    which must occur), built by its own ``nvcc`` under the build directory:
+    (name, (the declared ctypes library, the edited source))."""
+    import ctypes
+    import shutil
+
+    from ccnet_tpu_torch.ops import _build
+    from ccnet_tpu_torch.ops import probes as P
+
+    text = (_build.CSRC / "probes.cu").read_text()
+    for old, new in edits:
+        if old not in text:
+            raise RuntimeError(f"variant {name!r}: {old!r} not in csrc/probes.cu")
+        text = text.replace(old, new)
+    d = _build.BUILD_DIR / "variants" / name.replace(" ", "_")
+    d.mkdir(parents=True, exist_ok=True)
+    for f in _build.CSRC.glob("*.cuh"):
+        shutil.copy(f, d / f.name)
+    (d / "probes.cu").write_text(text)
+    so = d / "libprobes.so"
+    proc = subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", str(so),
+                           str(d / "probes.cu")], capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for variant {name!r}:\n{proc.stderr}")
+    return name, (P.declare(ctypes.CDLL(str(so))), text)
+
+
 def probe_variants(rounds: int = 2) -> dict:
     """Device µs (:func:`_device_us`) of the probe copy (P2 and P5 at the
     model's shapes) and scale (P3) kernels: this source's design, the
@@ -1193,35 +1242,15 @@ def probe_variants(rounds: int = 2) -> dict:
     over the tiles instead of one tile per block, and the one library call;
     each checked bit-exact, all timed in ``rounds`` turns (the order
     reversed every other round). Returns {(variant, grid, probe): [µs]}."""
-    import ctypes
-    import shutil
     from concurrent.futures import ThreadPoolExecutor
 
-    from ccnet_tpu_torch.ops import _build
     from ccnet_tpu_torch.ops import probes as P
 
-    source = (_build.CSRC / "probes.cu").read_text()
-    root = _build.BUILD_DIR / "variants"
-
     def build(name):
-        text = source
-        for old, new in PROBE_VARIANTS.get(name, ()):
-            if old not in text:
-                raise RuntimeError(f"variant {name!r}: {old!r} not in csrc/probes.cu")
-            text = text.replace(old, new)
-        d = root / name.replace(" ", "_")
-        d.mkdir(parents=True, exist_ok=True)
-        for f in _build.CSRC.glob("*.cuh"):
-            shutil.copy(f, d / f.name)
-        (d / "probes.cu").write_text(text)
-        so = d / "libprobes.so"
-        proc = subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", str(so),
-                               str(d / "probes.cu")], capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for variant {name!r}:\n{proc.stderr}")
+        name, (lib, text) = _probes_variant(name, PROBE_VARIANTS.get(name, ()))
         threads, unroll = (int(text.split(f"constexpr int {k} = ")[1].split(";")[0])
                            for k in ("COPY_THREADS", "COPY_UNROLL"))
-        return name, (P.declare(ctypes.CDLL(str(so))), threads, unroll)
+        return name, (lib, threads, unroll)
 
     names = ["this design", *PROBE_VARIANTS]
     with ThreadPoolExecutor(len(names)) as ex:
@@ -1275,14 +1304,153 @@ def probe_variants(rounds: int = 2) -> dict:
     return times
 
 
-def _probe_call(fn, x, y, *args):
-    """One launch of a probe kernel variant on x into y; returns y."""
+# what holds the dot back, as text edits of csrc/probes.cu that each leave
+# out one phase of its work (their results are wrong, so they are timed only)
+DOT_DIAGNOSTICS = {
+    "no global stores": [("for (int i = threadIdx.x; i < body; i += 32 * WARPS) out4[i] = es4[i];",
+                          "")],
+    "no products": [("mma_2(acc[i][0], acc[i][1], a, b);",
+                     "acc[i][0][0] += __uint_as_float(a[0] ^ b[0]);")],
+    "no shared-memory band": [("if (r < w.bh && g < H) es[r * H + g] = acc[i][j >> 2][j & 3];",
+                               "if (r < w.bh && g < H && acc[i][j >> 2][j & 3] == 1.2345f) "
+                               "es[r * H + g] = 0.f;")],
+}
+# ... and the staging alone: no products, no band, no stores
+DOT_DIAGNOSTICS["loads alone"] = [*DOT_DIAGNOSTICS["no global stores"],
+                                  *DOT_DIAGNOSTICS["no products"],
+                                  *DOT_DIAGNOSTICS["no shared-memory band"]]
+# ... everything but the loads; and the launch of blocks that do nothing
+DOT_DIAGNOSTICS["no loads"] = [
+    ("cp_async16(dst + r * KP + j, valid ? src + r * sH + c0 + j : src, valid);", "(void)valid;")]
+DOT_DIAGNOSTICS["empty blocks"] = [
+    ("  extern __shared__ __align__(16) unsigned char smem[];\n  const int band_p",
+     "  extern __shared__ __align__(16) unsigned char smem[];\n  if (p.H > 0) return;\n"
+     "  const int band_p")]
+
+
+def dot_diagnostics(rounds: int = 2) -> dict:
+    """Device µs (:func:`_device_us`) of P1 and P4 at the model's shapes on
+    this source and on each DOT_DIAGNOSTICS variant, under ``dot_plan``'s
+    plan, in ``rounds`` turns: the time a phase costs is what leaving it
+    out saves. Returns {(probe, variant): [µs]}."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from ccnet_tpu_torch.ops import probes as P
 
-    rc = fn(x.data_ptr(), y.data_ptr(), *args, P._stream(x.get_device()))
+    names = ["this design", *DOT_DIAGNOSTICS]
+    with ThreadPoolExecutor(len(names)) as ex:
+        libs = dict(ex.map(lambda n: _probes_variant(n, DOT_DIAGNOSTICS.get(n, ())), names))
+    for name in ("mid_batch_dot", "mid_batch_dot_4d"):
+        plan = P.dot_plan(*_dot_layout(name, PROBES[name][1]))
+        resident = P.dot_occupancy(plan.warps, plan.smem)
+        log(f"[dot-diagnostics] {name}: {plan}; {resident} blocks resident per SM")
+    times = {}
+    for rnd in range(rounds):
+        for name in ("mid_batch_dot", "mid_batch_dot_4d"):
+            shape = PROBES[name][1]
+            N, T, H, C, strides = _dot_layout(name, shape)
+            c = P._DotPlanC(*P.dot_plan(N, T, H, C, strides))
+            sets = _copies(_probe_inputs(name, shape))
+            for variant in (names if rnd % 2 == 0 else names[::-1]):
+                lib = libs[variant][0]
+
+                def fn(q, k, lib=lib):
+                    e = torch.empty((N, T, H, H), device=q.device, dtype=torch.float32)
+                    return _probe_call(lib.probe_mid_batch_dot, q, k, c, out=e)
+                if variant == "this design":
+                    want = getattr(P, f"{name}_plain")(*sets[0])
+                    _rel_check(f"{name} {variant}", fn(*sets[0]).reshape(want.shape), want,
+                               PROBE_DOT_TOL)
+                times.setdefault((name, variant), []).append(_device_us(fn, sets)[0])
+            del sets
+    for name in ("mid_batch_dot", "mid_batch_dot_4d"):
+        log(f"[dot-diagnostics] {name} at {PROBES[name][1]}, device µs per call ({rounds} "
+            f"rounds in turns): " + "; ".join(f"{v} " + " ".join(
+                "not measured" if t is None else f"{t:.2f}" for t in ts)
+                                           for (n, v), ts in times.items() if n == name))
+    torch.cuda.empty_cache()
+    return times
+
+
+def _dot_layout(name: str, shape) -> tuple:
+    """(N, T, H, C, element strides) of probe ``name``'s dot at ``shape``."""
+    if name == "mid_batch_dot":
+        H, T, C = shape
+        return 1, T, H, C, (0, T * C, C)
+    N, H, T, C = shape
+    return N, T, H, C, (H * T * C, T * C, C)
+
+
+def dot_variants(rounds: int = 2) -> dict:
+    """Device µs (:func:`_device_us`) of the dot kernel under other launch
+    plans than ``dot_plan``'s, all through the one built library: P1 in
+    blocks of 16 warps (one per SM) with bands of 16, 32, 48, 64 and 97
+    query rows, and of 8 warps (two per SM) with bands of 64 and 97; P4 in
+    blocks of 8 warps on grids of 132, 264, 388 and 776 blocks (its 776
+    whole-line items), and of 16 on 132; each checked against the
+    plain version (the bf16 ``einsum`` beside them rounds its output, so it
+    is timed only), in ``rounds`` turns (the order reversed every other
+    round). Returns {(probe, variant): [µs]}."""
+    from ccnet_tpu_torch.ops import probes as P
+
+    lib = P._lib()
+    cases = {}
+    for name in ("mid_batch_dot", "mid_batch_dot_4d"):
+        N, T, H, C, strides = _dot_layout(name, PROBES[name][1])
+        base = P.dot_plan(N, T, H, C, strides)
+        # (warps, band, blocks); blocks None: one per resident slot or item
+        runs = ([(16, b, None) for b in (16, 32, 48, 64, 97)] + [(8, 64, None), (8, 97, None)]
+                if name == "mid_batch_dot" else
+                [(8, base.band, b) for b in (132, 264, 388, 776)] + [(16, base.band, None)])
+        plans = {}
+        for warps, band, blocks in runs:
+            es_bytes, smem = P.dot_smem(H, band, base.group)
+            items = N * T * -(-H // band)
+            blocks = blocks or min(items, P.H100_SMS * P.DOT_DESIGNS[warps])
+            plans[f"{warps} warps, band {band}, {blocks} blocks"] = base._replace(
+                band=band, bands=-(-H // band), warps=warps, es_bytes=es_bytes, smem=smem,
+                items=items, blocks=blocks)
+        cases[name] = (N, T, H, plans)
+    times = {}
+    for rnd in range(rounds):
+        for name, (N, T, H, plans) in cases.items():
+            sets = _copies(_probe_inputs(name, PROBES[name][1]))
+            runs = [*plans, "einsum"]
+            for variant in (runs if rnd % 2 == 0 else runs[::-1]):
+                if variant == "einsum":
+                    fn = _probe_library(name)
+                else:
+                    c = P._DotPlanC(*plans[variant])
+
+                    def fn(q, k, c=c):
+                        e = torch.empty((N, T, H, H), device=q.device, dtype=torch.float32)
+                        _probe_call(lib.probe_mid_batch_dot, q, k, c, out=e)
+                        return e
+                    q, k = sets[0]
+                    want = getattr(P, f"{name}_plain")(q, k)
+                    _rel_check(f"{name} {variant}", fn(q, k).reshape(want.shape), want,
+                               PROBE_DOT_TOL)
+                times.setdefault((name, variant), []).append(_device_us(fn, sets)[0])
+            del sets
+    for name in cases:
+        log(f"[dot-variants] {name} at {PROBES[name][1]}, device µs per call ({rounds} rounds "
+            f"in turns): " + "; ".join(f"{v} " + " ".join(
+                "not measured" if t is None else f"{t:.2f}" for t in ts)
+                                       for (n, v), ts in times.items() if n == name))
+    torch.cuda.empty_cache()
+    return times
+
+
+def _probe_call(fn, x, y, *args, out=None):
+    """One launch of a probe kernel variant on x into y (on x and y into
+    ``out``, for the dot); returns y (``out``)."""
+    from ccnet_tpu_torch.ops import probes as P
+
+    ptrs = (x.data_ptr(), y.data_ptr()) + (() if out is None else (out.data_ptr(),))
+    rc = fn(*ptrs, *args, P._stream(x.get_device()))
     if rc != 0:
         raise RuntimeError(f"probe variant launch failed: CUDA error {rc}")
-    return y
+    return y if out is None else out
 
 
 def phase_probes() -> dict:
@@ -1315,19 +1483,38 @@ def phase_probes() -> dict:
         # arithmetic
         flops = 2 * got.numel() * shape[-1] if dot else got.numel() * (name == "scale_ragged")
         report[name] = {"max_abs_err": err, **_bound(xs, (got,), flops, dtype)}
-        if not dot:
-            report[name]["design"] = ("one 16-byte chunk per thread, one tile per block, "
-                                      "no staging")
+        report[name]["design"] = (
+            "a band of query rows and all its line's keys staged once per block, mma.sync, "
+            "the band's run of e stored as float4 from shared memory" if dot else
+            "one 16-byte chunk per thread, one tile per block, no staging")
         log(f"[probes] {name}: ok at {small} and {shape} {str(dtype)[6:]} "
             f"({'<= %g x scale, err %.2e' % (PROBE_DOT_TOL, err) if dot else 'bit-exact'})")
         del xs, got, want
+    for name, shape, offset in PROBE_DOT_EDGES:
+        n = math.prod(shape)
+        xs = [x[offset:offset + n].view(shape) for x in _probe_inputs(name, (n + 8,))]
+        before = P.LAUNCHES[name]
+        got = getattr(P, name)(*xs)
+        torch.cuda.synchronize()
+        if P.LAUNCHES[name] != before + 1:
+            raise RuntimeError(f"{name} did not count its launch")
+        err = _rel_check(f"{name} at {shape}, offset {offset}", got,
+                         getattr(P, f"{name}_plain")(*xs), PROBE_DOT_TOL)
+        log(f"[probes] {name}: ok at {shape}, base {2 * offset} bytes past 16 (<= "
+            f"{PROBE_DOT_TOL:g} x scale, err {err:.2e})")
+        del xs, got
     for name, r in probe_times().items():
         e = report[name]
         e.update(r)
+        dev = {k: "not measured" if e[k] is None else f"{e[k]:.2f}"
+               for k in ("device_us", "library_device_us")}
+        us = "" if "dot" not in name else (
+            f"; device µs {dev['device_us']} vs einsum {dev['library_device_us']}, host µs "
+            f"{e['host_us']:.2f} vs einsum {e['library_host_us']:.2f}")
         log(f"[probes] {name} at {PROBES[name][1]}: kernel {e['ms']:.4f} ms, plain "
             f"{e['plain_ms']:.4f} ms, library {e['library_ms']:.4f} ms, bound "
             f"{e['bound_ms']:.4f} ms by {e['bound_by']} ({e['bound_ms'] / e['ms']:.1%} of it; "
-            f"median of {TIMING_REPS})")
+            f"median of {TIMING_REPS}){us}")
     return report
 
 
@@ -1698,11 +1885,81 @@ def phase_train_main_path(pth: str, snap_dir: str, batch: int, hw, steps: int,
     log(f"[train] {tag}, {steps} steps: losses {' '.join(f'{v:.4f}' for v in losses)}; "
         f"launches {launches}")
     log(f"[train] {tag}, steps 2-{steps}: {np.mean(dev):.4f} s/step on the card (CUDA events, "
-        f"augment + step), {batch / np.mean(dev):.2f} crops/s; host wall "
-        f"{np.mean(wall):.4f} s/step with the synthetic loader, "
-        f"{batch / np.mean(wall):.2f} crops/s; first step {result['step_seconds'][0]:.3f} s "
-        f"on the card; peak memory {peak / 2**30:.2f} GiB; {out} loads with strict=True")
+        f"augment + step; median {np.median(dev):.4f}), {batch / np.mean(dev):.2f} crops/s; "
+        f"host wall {np.mean(wall):.4f} s/step (median {np.median(wall):.4f}; the loader's "
+        f"wait, the step and the last step's checkpoint), {batch / np.mean(wall):.2f} "
+        f"crops/s; first step {result['step_seconds'][0]:.3f} s on the card; peak memory "
+        f"{peak / 2**30:.2f} GiB; {out} loads with strict=True")
     return launches, out
+
+
+def train_wall(steps: int = 4, batch: int = TRAIN_BATCH, workers: int = 8) -> dict:
+    """``cli.train --synthetic`` (R101 R=2 bf16 OHEM, seeded init) at batch
+    ``batch`` of 769², ``steps`` steps, ``--num-workers workers``: the
+    medians over steps 2.. of the host wall s/step and of the card's
+    s/step. Uses only what every version of ``cli.train`` has, so it also
+    times an earlier tree (run from its checkout)."""
+    from ccnet_tpu_torch.cli.train import main
+
+    with tempfile.TemporaryDirectory() as d:
+        result = main(["--synthetic", "--synthetic-size", f"{EVAL_HW[0]},{EVAL_HW[1]}",
+                       "--device", "cuda", "--batch-size", str(batch), "--input-size",
+                       f"{CROP},{CROP}", "--depth", str(DEPTH), "--ohem", "1", "--num-steps",
+                       str(steps), "--save-pred-every", str(steps), "--export-pth", "0",
+                       "--num-workers", str(workers), "--snapshot-dir", d])
+    r = {"wall_s_per_step": float(np.median(result["wall_seconds"][1:])),
+         "card_s_per_step": float(np.median(result["step_seconds"][1:])),
+         "wall_seconds": result["wall_seconds"], "step_seconds": result["step_seconds"]}
+    log(f"[train-wall] cli.train --synthetic bs {batch} {CROP}x{CROP}, {steps} steps, "
+        f"--num-workers {workers}: host wall median {r['wall_s_per_step']:.4f} s/step "
+        f"({' '.join(f'{v:.4f}' for v in r['wall_seconds'])}), card median "
+        f"{r['card_s_per_step']:.4f} s/step ({' '.join(f'{v:.4f}' for v in r['step_seconds'])})")
+    return r
+
+
+def eval_times(mode: str) -> dict:
+    """``cli.evaluate --synthetic`` (R101 R=2 bf16, seeded random weights)
+    on the 2 images of :data:`EVAL_HW` in ``EVAL_MODES[mode]``: the card's
+    s/img of each image (``batch_seconds``). Uses only what every version
+    of ``cli.evaluate`` has, so it also times an earlier tree."""
+    from ccnet_tpu_torch.cli.evaluate import main
+
+    flags, _ = EVAL_MODES[mode]
+    with tempfile.TemporaryDirectory() as d:
+        result = main(["--synthetic", "--synthetic-size", f"{EVAL_HW[0]},{EVAL_HW[1]}",
+                       "--input-size", f"{CROP},{CROP}", "--device", "cuda", "--save-preds",
+                       "0", "--output-dir", d] + flags)
+    secs = [float(v) for v in result["batch_seconds"]]
+    log(f"[eval-times] cli.evaluate {mode}: s/img on the card "
+        + " ".join(f"{v:.4f}" for v in secs))
+    return {"s_per_img": secs}
+
+
+def ab_turn() -> None:
+    """One turn of the parent/change A/B, run from a checkout's root: the
+    card, P1/P4's :func:`probe_times`, :func:`train_wall` and the sliding
+    and whole-image :func:`eval_times`, then one JSON line tagged ``[ab]``."""
+    from ccnet_tpu_torch.ops import _build
+
+    phase_card()
+    _build.build_libraries(LIBRARIES)
+    out = {"dots": probe_times(("mid_batch_dot", "mid_batch_dot_4d")), "train": train_wall(),
+           "sliding": eval_times("sliding"), "whole": eval_times("whole")}
+    out["train"] = {k: v for k, v in out["train"].items() if "per_step" in k}
+    log("[ab] " + json.dumps({"checkout": os.getcwd(), **out}))
+
+
+def ab(parent: str, order=("parent", "tree", "tree", "parent")) -> None:
+    """:func:`ab_turn` in the checkout ``parent`` (a ``git archive`` of the
+    parent commit) and in this one, in turns, each in its own process."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    code = ("import importlib.util as u, sys; sys.path.insert(0, '.'); "
+            f"sp = u.spec_from_file_location('cs', {os.path.abspath(__file__)!r}); "
+            "cs = u.module_from_spec(sp); sp.loader.exec_module(cs); cs.ab_turn()")
+    for who in order:
+        log(f"[ab] turn: {who}")
+        subprocess.run([sys.executable, "-c", code], cwd=parent if who == "parent" else here,
+                       check=True, timeout=900)
 
 
 def _read_png(path: str) -> np.ndarray:
@@ -1787,11 +2044,13 @@ def phase_main_path(pth: str, mode: str, model_name: str = "ccnet") -> dict:
                                          f"max index {pred.max()}")
             pngs = (f"; {len(ds)} prediction PNGs written, decoded with zlib: "
                     f"{EVAL_HW[0]}x{EVAL_HW[1]}, indices < 19")
-    secs = result["batch_seconds"]
+    secs, wall = result["batch_seconds"], result["wall_seconds"]
     log(f"[{mode}] {model_name} R{DEPTH}{' R=2' if model_name == 'ccnet' else ''} bf16 "
         f"{EVAL_HW[0]}x{EVAL_HW[1]} synthetic, 2 images {' '.join(flags)}: meanIU "
-        f"{result['meanIU']:.6f}, launches {launches}, s/img {secs[1]:.4f} (second image; "
-        f"first {secs[0]:.4f}); peak memory {peak / 2**30:.2f} GiB{pngs}")
+        f"{result['meanIU']:.6f}, launches {launches}, s/img {secs[1]:.4f} on the card (CUDA "
+        f"events, predict + confusion; second image; first {secs[0]:.4f}), host wall "
+        f"median {np.median(wall):.4f} s/img ({' '.join(f'{v:.4f}' for v in wall)}); peak "
+        f"memory {peak / 2**30:.2f} GiB{pngs}")
     return launches
 
 
@@ -1801,9 +2060,15 @@ def main(argv=None) -> None:
                         help="also run one kernel-route train step of CCNet, PSPNet and "
                              "DeepLabv3 under torch.profiler and print its top kernels by "
                              "device time")
+    parser.add_argument("--ab", metavar="PARENT_DIR",
+                        help="instead, time P1/P4 and cli.train --synthetic in the checkout "
+                             "PARENT_DIR and in this one in turns (parent, this, this, parent)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; needs one H100")
+    if args.ab:
+        ab(args.ab)
+        return
     smi = phase_card()
     phase_build()
     report = phase_kernels()

@@ -503,9 +503,16 @@ def test_tiny_train_step_kernel_route_matches_plain(cuda):
 
 
 # the probes P1–P5 (ccnet_tpu_torch/csrc/probes.cu): the script's shapes,
-# ragged edges, and the model's (K1's column logits, the column-major copy of v)
-PROBE_DOT_SHAPES = [(96, 16, 64), (7, 3, 70)]                      # (H, T, C)
-PROBE_DOT4_SHAPES = [(2, 96, 33, 64), (8, 97, 97, 64), (1, 33, 5, 8)]  # (B, H, W, C)
+# ragged edges, and the model's (K1's column logits, the column-major copy of v).
+# The dot's paths: one line of one pixel, the scalar staging (C % 8 != 0),
+# bands of 16-row tiles, several bands per line past 64 tiles (H = 231),
+# three channel chunks (64, 64, 8), two passes of keys (H = 600), whole lines
+# with several items per block (P4 at the model's shape; with two channel
+# chunks, staged by cp.async and by scalars)
+PROBE_DOT_SHAPES = [(96, 16, 64), (7, 3, 70), (1, 1, 8), (231, 2, 64), (97, 97, 136),
+                    (97, 97, 64), (600, 1, 64)]                    # (H, T, C)
+PROBE_DOT4_SHAPES = [(2, 96, 33, 64), (8, 97, 97, 64), (1, 33, 5, 8), (4, 97, 97, 72),
+                     (3, 97, 97, 70)]                              # (B, H, W, C)
 # rows of one 16-byte chunk (C = 8) over a large A x B
 PROBE_SWAP_SHAPES = [(96, 16, 128), (9, 13, 8), (1031, 517, 8)]     # (A, B, C)
 # B = 8 with a ragged W, as in the model's batch
@@ -545,6 +552,47 @@ def test_probe_mid_batch_dot_4d_matches_plain(cuda, shape):
     got = P.mid_batch_dot_4d(q, k)
     assert P.LAUNCHES["mid_batch_dot_4d"] == before + 1
     _dot_close(got, P.mid_batch_dot_4d_plain(q, k))
+
+
+@pytest.mark.parametrize("shape", [(97, 97, 64), (9, 4, 16)])
+def test_probe_mid_batch_dot_at_unaligned_base(cuda, shape):
+    """q and k starting 2 bytes past a 16-byte boundary: the scalar staging."""
+    from ccnet_tpu_torch.ops import probes as P
+
+    n = shape[0] * shape[1] * shape[2]
+    q, k = (_probe_in(seed, (n + 8,), cuda)[1:n + 1].view(shape) for seed in (17, 18))
+    assert q.is_contiguous() and q.data_ptr() % 16 == 2
+    assert P.dot_plan(1, shape[1], shape[0], shape[2], (0, shape[1] * shape[2], shape[2]),
+                      aligned=False).vec == 0
+    before = P.LAUNCHES["mid_batch_dot"]
+    got = P.mid_batch_dot(q, k)
+    assert P.LAUNCHES["mid_batch_dot"] == before + 1
+    _dot_close(got, P.mid_batch_dot_plain(q, k))
+
+
+def test_device_prefetch_pinned_copies_equal_plain_copies(cuda):
+    """Six batches of changing content through ``device_prefetch`` with
+    pinned buffers on a side stream (three in rotation per shape): each
+    placed batch equals its plain ``.to("cuda")`` copy, also after the
+    consumer's stream has worked on it and later copies reused the buffers."""
+    from ccnet_tpu_torch.data.loader import HostToDevice, device_prefetch
+
+    rng = np.random.RandomState(21)
+    batches = [(rng.randint(0, 256, (2, 257, 385, 3)).astype(np.uint8),
+                rng.randn(2, 257, 385).astype(np.float32), [f"batch_{i}"]) for i in range(6)]
+    copier = HostToDevice(cuda, depth=2)
+    got = []
+    for transfer, names in device_prefetch(iter(batches), lambda a, b: (copier(a, b),), depth=2):
+        images, labels = transfer.wait()
+        got.append((names, images, labels, images.float().sum(), (labels * 2).sum()))
+    torch.cuda.synchronize()
+    assert [g[0] for g in got] == [b[2] for b in batches]
+    for (_, images, labels, isum, lsum), (wi, wl, _) in zip(got, batches):
+        want_i, want_l = torch.from_numpy(wi).to("cuda"), torch.from_numpy(wl).to("cuda")
+        assert images.device.type == "cuda" and torch.equal(images, want_i)
+        assert torch.equal(labels, want_l)
+        assert isum.item() == want_i.float().sum().item()
+        assert lsum.item() == (want_l * 2).sum().item()
 
 
 @pytest.mark.parametrize("kind,shape", [("swap_leading", s) for s in PROBE_SWAP_SHAPES]

@@ -1,4 +1,13 @@
-"""The launch plans of the probe copy (P2/P5) and scale (P3) kernels, on the CPU.
+"""The launch plans of the probe kernels: the dot (P1/P4), the copy (P2/P5)
+and the scale (P3), on the CPU.
+
+``dot_plan`` sizes the dot's work items (a band of query rows of one line,
+with all its keys, in at most 227 KB of shared memory) and its grid (one
+block per resident slot, looping over items); ``dot_coverage`` replays
+``mid_batch_dot_kernel``'s items, tiles and stores over a plan: every logit
+is written once, from a shared-memory cell written once, for H of 1, 7, 96,
+97 and 231 with the lines above and below two waves of blocks, and over
+drawn shapes (hypothesis).
 
 ``csrc/probes.cu`` launches ``swap_leading_kernel`` and ``scale_kernel`` with
 plans that ``ccnet_tpu_torch.ops.probes`` computes in Python (``swap_plan``,
@@ -146,3 +155,90 @@ def test_scale_split_matches_pallas_tile(pm, shape, offset, blocks):
 def test_plans_reject_what_the_kernels_cannot_take(call):
     with pytest.raises(ValueError):
         call()
+
+
+SMS = P.H100_SMS
+
+
+def _dot_strides(T, H, C):  # P1's (H, T, C) layout
+    return (0, T * C, C)
+
+
+@pytest.mark.parametrize("H", [1, 7, 96, 97, 231])
+@pytest.mark.parametrize("N,T", [(1, 3), (1, 97), (2, 100), (8, 97), (6, 100)])
+def test_dot_plan_writes_every_logit_once(H, N, T):
+    plan = P.dot_plan(N, T, H, 64, _dot_strides(T, H, 64))
+    lines = N * T
+    assert plan.smem <= P.SMEM_MAX and plan.vec == 1
+    assert plan.items == lines * plan.bands and (plan.bands - 1) * plan.band < H
+    # 8 warps, two blocks per SM, for lines on every SM; else 16, one per SM
+    assert plan.warps == (8 if lines >= SMS else 16)
+    slots = SMS * P.DOT_DESIGNS[plan.warps]
+    assert plan.blocks == min(plan.items, slots)  # one block per resident slot at most
+    assert -(-plan.band // 16) * -(-min(plan.group, H) // 16) <= P.DOT_TILES
+    if lines >= slots and H <= 128:
+        assert plan.bands == 1  # whole lines
+    if 2 * lines <= slots and H > 16:
+        assert plan.bands >= 2  # bands of the few lines fill the card
+    cover = P.dot_coverage(plan, lines=min(lines, 8))  # 8 lines: every 16-byte phase of a run
+    assert bool((cover == 1).all())
+
+
+@settings(max_examples=40, deadline=None)
+@given(N=st.integers(1, 3), T=st.integers(1, 300), H=st.integers(1, 140),
+       C=st.integers(1, 200), aligned=st.booleans())
+def test_dot_plan_covers_drawn_shapes(N, T, H, C, aligned):
+    plan = P.dot_plan(N, T, H, C, (H * T * C, T * C, C), aligned=aligned)
+    assert plan.vec == int(aligned and C % 8 == 0)
+    assert plan.smem <= P.SMEM_MAX
+    assert (plan.es_bytes, plan.smem) == P.dot_smem(H, plan.band, plan.group)
+    assert bool((P.dot_coverage(plan, lines=min(N * T, 5)) == 1).all())
+
+
+def test_dot_plan_key_passes_and_narrow_bands_past_512_keys():
+    plan = P.dot_plan(1, 1, 1500, 64, (0, 64, 64))
+    assert plan.group == P.DOT_PASS_KEYS and plan.band <= 16 and plan.smem <= P.SMEM_MAX
+    assert bool((P.dot_coverage(plan) == 1).all())
+
+
+def test_dot_plan_struct_matches_the_plan():
+    plan = P.dot_plan(8, 97, 97, 64, (97 * 97 * 64, 97 * 64, 64))
+    c = P._DotPlanC(*plan)
+    assert tuple(getattr(c, f) for f in P.DotPlan._fields) == tuple(plan)
+    assert (plan.band, plan.bands, plan.items, plan.blocks, plan.warps) == (97, 1, 776, 264, 8)
+    p1 = P.dot_plan(1, 97, 97, 64, _dot_strides(97, 97, 64))  # a line per block, 16 warps
+    assert (p1.band, p1.bands, p1.items, p1.blocks, p1.warps) == (97, 1, 97, 97, 16)
+
+
+@pytest.mark.parametrize("call", [
+    lambda: P.dot_plan(0, 1, 8, 8, (0, 8, 8)),          # no line
+    lambda: P.dot_plan(1, 1, 0, 8, (0, 8, 8)),          # no pixel
+    lambda: P.dot_plan(1, 1, 60000, 64, (0, 64, 64)),   # one row of e outgrows shared memory
+])
+def test_dot_plan_rejects_what_the_kernel_cannot_take(call):
+    with pytest.raises(ValueError):
+        call()
+
+
+@pytest.mark.parametrize("strides,C,aligned", [((0, 70 * 3, 70), 70, True),
+                                                ((0, 12, 4), 4, True),
+                                                ((0, 512, 64), 64, False),
+                                                ((3, 512, 64), 64, True)])
+def test_dot_plan_stages_by_scalars_when_unaligned(strides, C, aligned):
+    assert P.dot_plan(1, 3, 9, C, strides, aligned=aligned).vec == 0
+
+
+def test_chip_smoke_variant_edits_apply_to_the_source():
+    """Every text edit ``chip_smoke.py`` makes to ``csrc/probes.cu`` for its
+    design variants and diagnostics finds its text there."""
+    import importlib.util
+
+    path = pathlib.Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_edits", path)
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    source = (pathlib.Path(P.__file__).resolve().parent.parent / "csrc" / "probes.cu").read_text()
+    for variants in (cs.PROBE_VARIANTS, cs.DOT_DIAGNOSTICS):
+        for name, edits in variants.items():
+            for old, _ in edits:
+                assert old in source, (name, old)
