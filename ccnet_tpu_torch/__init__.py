@@ -13,8 +13,9 @@ never ``jax``:
   ``torch.inference_mode()`` on an explicit device
   (:mod:`ccnet_tpu_torch.evaluation`).
 
-Ported so far: the evaluation slice (``python -m ccnet_tpu_torch.cli.evaluate``).
-Training, its losses and the backward kernels come later.
+Entry points: ``python -m ccnet_tpu_torch.cli.train`` (Cityscapes or VOC),
+``cli.evaluate``, ``cli.predict`` (test-set submission PNGs) and
+``cli.probe``. Multi-GPU (``parallel/``) is not ported.
 """
 
 __version__ = "0.1.0"

@@ -8,9 +8,14 @@ device the criss-cross attention goes through the hand-written kernels.
 
     python -m ccnet_tpu_torch.cli.evaluate --synthetic --restore-from ccnet.pth
 
-Not ported yet (they raise): ``--dataset voc``, ``--restore-dir`` (native
-snapshots), ``--space`` > 1 and ``--data-parallel`` over more than one
-device.
+``--dataset voc`` scores VOC val (``--data-list`` of ids): 21 classes when
+19 is given, batch 1 (the images vary in size), each image padded with the
+VOC mean to a multiple of ``--bucket`` (default 128), the VOC colormap and
+class names. ``--restore-dir`` loads the latest full-state snapshot
+(``step_*.pt``) that ``cli.train`` writes, in place of a ``.pth``.
+
+Not ported yet (they raise): ``--space`` > 1 and ``--data-parallel`` over
+more than one device.
 """
 
 from __future__ import annotations
@@ -26,10 +31,15 @@ from ccnet_tpu_torch.data import (
     CityscapesDataset,
     DataLoader,
     SyntheticDataset,
+    VOC_CLASS_NAMES,
+    VOC_MEAN,
+    VOCDataset,
 )
+from ccnet_tpu_torch.data.palette import voc_colormap
 from ccnet_tpu_torch.evaluation import Evaluator
 from ccnet_tpu_torch.models import build_model
-from ccnet_tpu_torch.utils import get_logger, load_pth, resolve_device
+from ccnet_tpu_torch.train import create_train_state
+from ccnet_tpu_torch.utils import get_logger, load_pth, resolve_device, restore_checkpoint
 
 
 def get_parser():
@@ -40,7 +50,8 @@ def get_parser():
                    choices=["cityscapes", "voc"])
     p.add_argument("--split", type=str, default="val")
     p.add_argument("--bucket", type=int, default=None,
-                   help="pad variable-size inputs up to multiples of this")
+                   help="pad variable-size inputs up to multiples of this (default 128 "
+                        "for voc)")
     p.add_argument("--model", type=str, default="ccnet",
                    choices=["ccnet", "pspnet", "deeplabv3"])
     p.add_argument("--recurrence", type=int, default=2)
@@ -50,7 +61,7 @@ def get_parser():
     p.add_argument("--batch-size", type=int, default=1)
     p.add_argument("--restore-from", type=str, default=None, help=".pth checkpoint")
     p.add_argument("--restore-dir", type=str, default=None,
-                   help="native snapshot dir (not ported yet)")
+                   help="full-state snapshot dir (step_*.pt of cli.train)")
     p.add_argument("--whole", type=str2bool, default=False)
     p.add_argument("--flip", type=str2bool, default=False)
     p.add_argument("--scales", type=str, default="1.0",
@@ -73,10 +84,6 @@ def get_parser():
 def main(argv=None):
     args = get_parser().parse_args(argv)
     logger = get_logger("ccnet_tpu_torch.cli.evaluate")
-    if args.dataset == "voc":
-        raise NotImplementedError("--dataset voc is not ported yet")
-    if args.restore_dir:
-        raise NotImplementedError("--restore-dir (native snapshots) is not ported yet")
     if args.space > 1:
         raise NotImplementedError("--space (height-sharded whole-image inference) "
                                   "is not ported yet")
@@ -90,6 +97,15 @@ def main(argv=None):
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
 
+    is_voc = args.dataset == "voc"
+    if is_voc and args.num_classes == 19:
+        args.num_classes = 21  # VOC: 20 classes + background
+    if is_voc and args.batch_size != 1:
+        # VOC val images vary in size and cannot be stacked into one batch
+        logger.warning("--dataset voc evaluates variable-size images; "
+                       f"forcing --batch-size {args.batch_size} -> 1")
+        args.batch_size = 1
+
     model = build_model(args.model, num_classes=args.num_classes,
                         recurrence=args.recurrence, depth=args.depth,
                         dtype=torch.float32 if args.fp32 else torch.bfloat16,
@@ -97,6 +113,10 @@ def main(argv=None):
     if args.restore_from:
         load_pth(args.restore_from, model)
         logger.info(f"loaded weights from {args.restore_from}")
+    elif args.restore_dir:
+        restore_checkpoint(args.restore_dir, create_train_state(model, max_steps=1))
+        model.eval()
+        logger.info(f"loaded snapshot from {args.restore_dir}")
     else:
         logger.warning("no checkpoint given — evaluating RANDOM weights")
 
@@ -106,18 +126,30 @@ def main(argv=None):
     if args.synthetic:
         sh, sw = (int(x) for x in args.synthetic_size.split(","))
         dataset = SyntheticDataset(n=2, hw=(sh, sw), num_classes=args.num_classes)
+    elif is_voc:
+        if not args.data_list:
+            raise SystemExit("--data-list (VOC id list) is required for --dataset voc")
+        dataset = VOCDataset(args.data_dir, args.data_list, raw_dtype="uint8")
     else:
         dataset = CityscapesDataset(args.data_dir, args.data_list, split=args.split,
                                     raw_dtype="uint8")
     loader = DataLoader(dataset, args.batch_size, shuffle=False, num_workers=args.num_workers,
                         drop_last=False)
 
+    if is_voc:
+        mean = VOC_MEAN
+        class_names = VOC_CLASS_NAMES if args.num_classes == 21 else None
+        palette = voc_colormap(256).ravel().tolist()
+        bucket = args.bucket if args.bucket is not None else 128
+    else:
+        mean = CITYSCAPES_MEAN_BGR
+        class_names = CITYSCAPES_CLASS_NAMES if args.num_classes == 19 else None
+        palette, bucket = None, args.bucket
     evaluator = Evaluator(
         apply_fn, num_classes=args.num_classes, tile_hw=(h, w),
         scales=[float(s) for s in args.scales.split(",")],
-        flip=args.flip, whole=args.whole, mean=CITYSCAPES_MEAN_BGR,
-        class_names=CITYSCAPES_CLASS_NAMES if args.num_classes == 19 else None,
-        bucket=args.bucket, device=device,
+        flip=args.flip, whole=args.whole, mean=mean, class_names=class_names,
+        bucket=bucket, palette=palette, device=device,
     )
     result = evaluator.run(loader, output_dir=args.output_dir,
                            save_preds=args.save_preds, logger=logger)

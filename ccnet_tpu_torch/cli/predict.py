@@ -1,0 +1,120 @@
+"""Test-set prediction CLI → Cityscapes-server submission PNGs.
+
+Counterpart of :mod:`ccnet_tpu.cli.predict` (the reference's ``test.py``,
+``:151-204``), with the same flags plus ``--device`` (default ``cuda``;
+asking for CUDA where there is none raises): sliding-window (or
+``--whole 1``) prediction through the port's ``Evaluator``, optionally
+multi-scale (``--scales``) and flipped (``--flip 1``), the argmax mapped
+back from trainIds to labelIds and written as 8-bit greyscale PNGs, or with
+``--labelid 0`` the trainIds as palette PNGs. Both are written with the
+standard library (no PIL). Inputs are mean-subtracted as in training.
+
+    python -m ccnet_tpu_torch.cli.predict --data-dir cityscapes --restore-from ccnet.pth
+
+``main(argv, dataset=...)`` predicts a set of raw ``(image, label, name)``
+samples given in memory in place of the ``--split`` images under
+``--data-dir``. Not ported yet (they raise): ``--space`` > 1 and
+``--data-parallel`` over more than one device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import os.path as osp
+import time
+
+import torch
+
+from ccnet_tpu_torch.cli.common import str2bool
+from ccnet_tpu_torch.data import CityscapesDataset, DataLoader, trainid_to_labelid
+from ccnet_tpu_torch.data.palette import cityscapes_palette, save_grey_png, save_indexed_png
+from ccnet_tpu_torch.evaluation import Evaluator
+from ccnet_tpu_torch.models import build_model
+from ccnet_tpu_torch.utils import get_logger, load_pth, resolve_device
+
+
+def get_parser():
+    p = argparse.ArgumentParser(description="ccnet_tpu_torch test-set prediction")
+    p.add_argument("--data-dir", type=str, default="cityscapes")
+    p.add_argument("--data-list", type=str, default=None)
+    p.add_argument("--split", type=str, default="test")
+    p.add_argument("--model", type=str, default="ccnet",
+                   choices=["ccnet", "pspnet", "deeplabv3"])
+    p.add_argument("--recurrence", type=int, default=2)
+    p.add_argument("--depth", type=int, default=101)
+    p.add_argument("--num-classes", type=int, default=19)
+    p.add_argument("--input-size", type=str, default="769,769")
+    p.add_argument("--restore-from", type=str, required=True)
+    p.add_argument("--whole", type=str2bool, default=False)
+    p.add_argument("--flip", type=str2bool, default=False)
+    p.add_argument("--scales", type=str, default="1.0",
+                   help="comma list, e.g. 0.75,1.0,1.25 (multi-scale average)")
+    p.add_argument("--output-dir", type=str, default="outputs")
+    p.add_argument("--labelid", type=str2bool, default=True,
+                   help="write labelId PNGs (server format); False = trainId palette PNGs")
+    p.add_argument("--fp32", type=str2bool, default=False,
+                   help="f32 compute with TF32 off (default: bf16)")
+    p.add_argument("--data-parallel", type=str2bool, default=True,
+                   help="no-op on one device; multi-GPU is not ported yet")
+    p.add_argument("--space", type=int, default=1,
+                   help="height sharding of --whole inference (not ported yet)")
+    p.add_argument("--device", type=str, default="cuda", help="cuda, cuda:N or cpu")
+    return p
+
+
+def main(argv=None, dataset=None) -> dict:
+    """Write one PNG per image; returns ``{"paths", "seconds"}``: the PNGs in
+    order and each image's host seconds from its prediction to its PNG."""
+    args = get_parser().parse_args(argv)
+    logger = get_logger("ccnet_tpu_torch.cli.predict")
+    if args.space > 1:
+        raise NotImplementedError("--space (height-sharded whole-image inference) "
+                                  "is not ported yet")
+    device = resolve_device(args.device)
+    if args.data_parallel and device.type == "cuda" and torch.cuda.device_count() > 1:
+        raise NotImplementedError("--data-parallel over more than one GPU is not ported yet; "
+                                  "pass --data-parallel 0 or expose one device")
+    h, w = (int(x) for x in args.input_size.split(","))
+    if args.fp32:
+        # strict numerics: full-f32 matmuls and convolutions, no TF32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+
+    model = build_model(args.model, num_classes=args.num_classes, recurrence=args.recurrence,
+                        depth=args.depth, dtype=torch.float32 if args.fp32 else torch.bfloat16,
+                        impl="auto", device=device)
+    load_pth(args.restore_from, model)
+
+    def apply_fn(x):
+        return model(x)["main"]
+
+    evaluator = Evaluator(apply_fn, num_classes=args.num_classes, tile_hw=(h, w),
+                          scales=[float(s) for s in args.scales.split(",")],
+                          flip=args.flip, whole=args.whole, device=device)
+    if dataset is None:
+        dataset = CityscapesDataset(args.data_dir, args.data_list, split=args.split,
+                                    raw_dtype="uint8")
+    loader = DataLoader(dataset, 1, shuffle=False, num_workers=4, drop_last=False)
+
+    os.makedirs(args.output_dir, exist_ok=True)
+    palette = cityscapes_palette()
+    paths, seconds = [], []
+    for images, _, names in loader:
+        t0 = time.perf_counter()
+        preds = evaluator.predict_batch(images)
+        for pred, name in zip(preds, names):
+            path = osp.join(args.output_dir, f"{name}.png")
+            if args.labelid:
+                save_grey_png(path, trainid_to_labelid(pred))
+            else:
+                save_indexed_png(path, pred, palette)
+            paths.append(path)
+        seconds.append(time.perf_counter() - t0)
+        logger.info(f"predicted {len(paths)} images")
+    logger.info(f"wrote {len(paths)} PNGs to {args.output_dir}")
+    return {"paths": paths, "seconds": seconds}
+
+
+if __name__ == "__main__":
+    main()

@@ -14,12 +14,21 @@ off. ``--batch-size`` is the batch
 of the one process. ``--synthetic`` trains on generated 1024×2048 images
 with the on-device augmentation.
 
-Not ported yet (they raise): ``--dataset voc``, ``--augment-backend
-native``, ``--remat`` other than ``none``, ``--tensorboard`` and
-``--profile-steps``. ``--num-workers`` threads decode the samples, and
-``--cache-decoded`` keeps the decoded Cityscapes samples in host memory
-(``CachedDataset``, raw samples before the augmentation), as in the JAX CLI;
-batches reach the card through ``device_prefetch``.
+``--dataset voc`` reads ``JPEGImages``/``SegmentationClassAug`` with an id
+list (``--data-list``) and augments on the host (:func:`voc_dataset`:
+``CachedDataset`` → ``AugmentingDataset`` with the VOC mean and scales,
+numpy resizes of cv2's semantics), as the JAX CLI does; pass
+``--num-classes 21``. ``main(argv, dataset=...)`` trains on a raw dataset
+given in memory in place of the files. ``--augment-backend native`` augments
+on the host with the C++/OpenMP library (:mod:`ccnet_tpu_torch.native`,
+built with ``g++`` at first use; it raises if that fails). ``--remat``
+recomputes layer 3-4 blocks in the backward, ``--tensorboard 1`` writes
+scalars under ``snapshot-dir/tb``, ``--profile-steps a,b`` a
+``torch.profiler`` chrome trace of steps [a, b) under
+``snapshot-dir/profile``. ``--num-workers`` threads decode the samples, and
+``--cache-decoded`` keeps the decoded raw samples in host memory
+(``CachedDataset``, before the augmentation), as in the JAX CLI; batches
+reach the card through ``device_prefetch``.
 """
 
 from __future__ import annotations
@@ -30,12 +39,15 @@ import torch
 
 from ccnet_tpu_torch.cli.common import str2bool
 from ccnet_tpu_torch.data import (
+    AugmentingDataset,
     CachedDataset,
     CityscapesDataset,
     DataLoader,
     SyntheticDataset,
     U8CropDataset,
+    VOCDataset,
 )
+from ccnet_tpu_torch.data.voc import VOC_MEAN, VOC_SCALE_MIN, VOC_SCALE_STEPS
 from ccnet_tpu_torch.train.trainer import TrainConfig, Trainer
 from ccnet_tpu_torch.utils import get_logger, resolve_device
 
@@ -80,16 +92,19 @@ def get_parser():
                    help="f32 compute with TF32 off (default: bf16)")
     p.add_argument("--remat", type=str, default="none",
                    choices=["none", "blocks", "conv12", "convs"],
-                   help="activation remat (only none is ported)")
+                   help="activation remat: none, blocks (recompute layer 3-4 blocks), "
+                        "conv12/convs (keep those conv outputs, recompute the rest)")
     p.add_argument("--export-pth", type=str2bool, default=True)
     p.add_argument("--augment-backend", type=str, default="host_u8",
                    choices=["device", "native", "host_u8", "precropped"],
-                   help="host_u8: host cv2 augmentation to uint8 crops, widened on "
-                        "the device; device: the torch gather sampler on raw images; "
-                        "precropped: the loader yields final crops; native: not ported")
+                   help="host_u8: host augmentation to uint8 crops (engine auto: the "
+                        "C++/OpenMP library when it builds, else cv2), widened on the "
+                        "device; device: the torch gather sampler on raw images; native: "
+                        "the C++/OpenMP host kernel, f32 crops; precropped: the loader "
+                        "yields final crops")
     p.add_argument("--tensorboard", type=str2bool, default=False)
     p.add_argument("--profile-steps", type=str, default=None,
-                   help="start,stop step range (not ported yet)")
+                   help="start,stop step range for a torch.profiler trace")
     p.add_argument("--cache-decoded", type=str2bool, default=True,
                    help="keep decoded raw samples in host RAM (CCNET_TPU_CACHE_GB budget)")
     p.add_argument("--synthetic", action="store_true", help="synthetic data smoke run")
@@ -98,13 +113,23 @@ def get_parser():
     return p
 
 
-def main(argv=None):
+def voc_dataset(raw, crop_hw, ignore_label: int = 255, scale: bool = True,
+                mirror: bool = True, seed: int = 304, cache_decoded: bool = True):
+    """The VOC training set of the JAX CLI's wiring: the raw samples (cached
+    in RAM with ``cache_decoded``) augmented on the host to ``crop_hw`` crops
+    with the VOC mean and scales 0.5–1.6."""
+    if cache_decoded:
+        raw = CachedDataset(raw)  # raw samples, not augmented crops
+    return AugmentingDataset(raw, crop_hw=crop_hw, mean=VOC_MEAN, ignore_label=ignore_label,
+                             scale=scale, mirror=mirror, scale_min=VOC_SCALE_MIN,
+                             scale_steps=VOC_SCALE_STEPS, seed=seed)
+
+
+def main(argv=None, dataset=None):
+    """Train; ``dataset``: raw ``(image, label, name)`` samples to use in place
+    of the files under ``--data-dir`` (VOC: f32/int32, Cityscapes: uint8)."""
     args = get_parser().parse_args(argv)
     logger = get_logger("ccnet_tpu_torch.cli.train")
-    if args.dataset == "voc":
-        raise NotImplementedError("--dataset voc is not ported yet")
-    if args.augment_backend == "native":
-        raise NotImplementedError("--augment-backend native is not ported yet")
     device = resolve_device(args.device)
     if args.fp32:
         # strict numerics: full-f32 matmuls and convolutions, no TF32
@@ -135,9 +160,18 @@ def main(argv=None):
                                    num_classes=args.num_classes)
         if cfg.augment_backend == "host_u8":
             cfg.augment_backend = "device"  # synthetic yields f32 full images
+    elif args.dataset == "voc":
+        # variable-size images: host augmentation, the crops arrive made
+        raw = dataset if dataset is not None else VOCDataset(args.data_dir, args.data_list)
+        dataset = voc_dataset(raw, (h, w), ignore_label=args.ignore_label,
+                              scale=args.random_scale, mirror=args.random_mirror,
+                              seed=args.random_seed, cache_decoded=args.cache_decoded)
+        cfg.augment_backend = "precropped"
+        cfg.mean = VOC_MEAN
     else:
-        dataset = CityscapesDataset(args.data_dir, args.data_list, split="train",
-                                    raw_dtype="uint8")
+        if dataset is None:
+            dataset = CityscapesDataset(args.data_dir, args.data_list, split="train",
+                                        raw_dtype="uint8")
         if args.cache_decoded:
             dataset = CachedDataset(dataset)  # raw samples, before the augmentation
         if cfg.augment_backend == "host_u8":

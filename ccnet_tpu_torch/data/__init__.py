@@ -5,7 +5,9 @@ from ccnet_tpu_torch.data.cityscapes import (
     trainid_lut,
     trainid_to_labelid,
 )
+from ccnet_tpu_torch.data.lists import generate_cityscapes_lists, generate_voc_lists
 from ccnet_tpu_torch.data.loader import (
+    AugmentingDataset,
     CachedDataset,
     DataLoader,
     HostToDevice,
@@ -19,9 +21,13 @@ from ccnet_tpu_torch.data.preprocess import (
     CITYSCAPES_MEAN_BGR,
     device_augment_batch,
     finish_u8_crops,
+    host_augment,
+    host_augment_u8,
 )
+from ccnet_tpu_torch.data.voc import VOC_CLASS_NAMES, VOC_MEAN, VOCDataset
 
 __all__ = [
+    "AugmentingDataset",
     "CITYSCAPES_CLASS_NAMES",
     "CITYSCAPES_ID_TO_TRAINID",
     "CITYSCAPES_MEAN_BGR",
@@ -36,7 +42,14 @@ __all__ = [
     "device_augment_batch",
     "device_prefetch",
     "finish_u8_crops",
+    "generate_cityscapes_lists",
+    "generate_voc_lists",
+    "host_augment",
+    "host_augment_u8",
     "save_indexed_png",
     "trainid_lut",
     "trainid_to_labelid",
+    "VOC_CLASS_NAMES",
+    "VOC_MEAN",
+    "VOCDataset",
 ]

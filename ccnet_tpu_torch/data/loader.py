@@ -4,8 +4,11 @@ Copies of the JAX package's :mod:`ccnet_tpu.data.loader` pieces that the
 training and evaluation paths use, with the same seeds and orders:
 
 * :class:`SyntheticDataset` (same samples);
-* :class:`U8CropDataset`, host augmentation to uint8 crops with draws
-  deterministic per ``(seed, epoch, index)`` (:func:`_epoch_rng`);
+* :class:`AugmentingDataset`, host augmentation of variable-size samples
+  (VOC) to fixed-size f32 crops, and :class:`U8CropDataset`, host
+  augmentation to uint8 crops by cv2 or the native library (``engine``),
+  both with draws deterministic per ``(seed, epoch, index)``
+  (:func:`_epoch_rng`);
 * :class:`CachedDataset`, the decode-once RAM cache keyed by sample name
   (``max_items``/``max_bytes`` caps, ``CCNET_TPU_CACHE_GB`` budget);
 * :class:`DataLoader`, the JAX loader: epoch order
@@ -17,9 +20,8 @@ training and evaluation paths use, with the same seeds and orders:
   :class:`HostToDevice`, its placement on a CUDA card: pinned staging
   buffers and a side stream, the consumer's stream waiting on each copy.
 
-``AugmentingDataset`` (VOC) is not ported. Multi-GPU is not either:
-``process_index``/``process_count`` default to 0/1 and nothing asks
-``torch.distributed``.
+Multi-GPU is not ported: ``process_index``/``process_count`` default to
+0/1 and nothing asks ``torch.distributed``.
 """
 
 from __future__ import annotations
@@ -86,21 +88,19 @@ class SyntheticDataset:
         return image, label, self.name(index)
 
 
-class U8CropDataset:
-    """Host augmentation of a raw uint8 dataset to fixed-size uint8 crops
-    (:func:`~ccnet_tpu_torch.data.preprocess.host_augment_u8`, numpy/cv2);
-    the f32 widen and mean subtraction happen on the device
-    (:func:`~ccnet_tpu_torch.data.preprocess.finish_u8_crops`). Draws are
-    deterministic per ``(seed, epoch, index)`` and re-drawn every epoch."""
+class AugmentingDataset:
+    """Host augmentation of a dataset of variable-size raw samples (VOC) to
+    fixed-size crops: :func:`~ccnet_tpu_torch.data.preprocess.host_augment`
+    (numpy, no cv2) with the rng of ``(seed, epoch, index)``, re-drawn every
+    epoch (``set_epoch``); f32 mean-subtracted images and the labels' dtype
+    out."""
 
-    def __init__(self, dataset, crop_hw=(769, 769), mean=None, scale: bool = True,
-                 mirror: bool = True, ignore_label: int = 255, scale_min: float = 0.7,
-                 scale_steps: int = 15, seed: int = 0):
-        from ccnet_tpu_torch.data.preprocess import CITYSCAPES_MEAN_BGR
-
+    def __init__(self, dataset, crop_hw=(321, 321), mean=(128.0, 128.0, 128.0),
+                 scale: bool = True, mirror: bool = True, ignore_label: int = 255,
+                 scale_min: float = 0.5, scale_steps: int = 12, seed: int = 0):
         self.dataset = dataset
         self.crop_hw = crop_hw
-        self.mean = CITYSCAPES_MEAN_BGR if mean is None else mean
+        self.mean = mean
         self.scale, self.mirror = scale, mirror
         self.ignore_label = ignore_label
         self.scale_min, self.scale_steps = scale_min, scale_steps
@@ -117,14 +117,95 @@ class U8CropDataset:
         return self.dataset.name(index)
 
     def __getitem__(self, index):
-        from ccnet_tpu_torch.data.preprocess import host_augment_u8
+        from ccnet_tpu_torch.data.preprocess import host_augment
 
         image, label, name = self.dataset[index]
-        img, lbl = host_augment_u8(
+        img, lbl = host_augment(
             image, label, _epoch_rng(self.seed, self.epoch, index), crop_hw=self.crop_hw,
             mean=self.mean, ignore_label=self.ignore_label, scale=self.scale,
             mirror=self.mirror, scale_min=self.scale_min, scale_steps=self.scale_steps)
         return img, lbl, name
+
+
+class U8CropDataset:
+    """Host augmentation of a raw uint8 dataset to fixed-size uint8 crops;
+    the f32 widen and mean subtraction happen on the device
+    (:func:`~ccnet_tpu_torch.data.preprocess.finish_u8_crops`). Draws are
+    deterministic per ``(seed, epoch, index)`` and re-drawn every epoch.
+
+    ``engine``: ``"cv2"`` resizes the whole image, then crops
+    (:func:`~ccnet_tpu_torch.data.preprocess.host_augment_u8`, the
+    reference's cv2 chain); ``"native"`` samples only the crop window in
+    the C++/OpenMP library (:mod:`ccnet_tpu_torch.native`), with the same
+    half-pixel semantics and ±1 uint8 rounding against cv2's fixed point;
+    ``"auto"`` takes native when the library builds. Both engines consume
+    the same rng stream (scale, oy, ox, mirror), so their geometry is the
+    same. An explicit ``"native"`` raises at the first sample when the
+    library does not build."""
+
+    def __init__(self, dataset, crop_hw=(769, 769), mean=None, scale: bool = True,
+                 mirror: bool = True, ignore_label: int = 255, scale_min: float = 0.7,
+                 scale_steps: int = 15, seed: int = 0, engine: str = "auto"):
+        from ccnet_tpu_torch.data.preprocess import CITYSCAPES_MEAN_BGR
+
+        self.dataset = dataset
+        self.crop_hw = crop_hw
+        self.mean = CITYSCAPES_MEAN_BGR if mean is None else mean
+        self.scale, self.mirror = scale, mirror
+        self.ignore_label = ignore_label
+        self.scale_min, self.scale_steps = scale_min, scale_steps
+        self.seed = seed
+        self.epoch = 0
+        if engine == "auto":
+            from ccnet_tpu_torch import native
+
+            engine = "native" if native.available() else "cv2"
+        if engine not in ("native", "cv2"):
+            raise ValueError(f"unknown engine {engine!r}")
+        self.engine = engine
+        self._identity_lut = np.arange(256, dtype=np.uint8)
+
+    def set_epoch(self, epoch: int):
+        self.epoch = epoch
+
+    def __len__(self):
+        return len(self.dataset)
+
+    def name(self, index):
+        return self.dataset.name(index)
+
+    def __getitem__(self, index):
+        image, label, name = self.dataset[index]
+        rng = _epoch_rng(self.seed, self.epoch, index)
+        if self.engine == "native":
+            img, lbl = self._augment_native(image, label, rng)
+        else:
+            from ccnet_tpu_torch.data.preprocess import host_augment_u8
+
+            img, lbl = host_augment_u8(
+                image, label, rng, crop_hw=self.crop_hw, mean=self.mean,
+                ignore_label=self.ignore_label, scale=self.scale, mirror=self.mirror,
+                scale_min=self.scale_min, scale_steps=self.scale_steps)
+        return img, lbl, name
+
+    def _augment_native(self, image, label, rng):
+        """The draws of ``host_augment_u8``, in its order, then the library."""
+        from ccnet_tpu_torch import native
+        from ccnet_tpu_torch.data.preprocess import SCALE_STEP, scaled_size
+
+        ch, cw = self.crop_hw
+        H0, W0 = label.shape
+        f = (self.scale_min + SCALE_STEP * rng.randint(0, self.scale_steps)
+             if self.scale else 1.0)
+        sh, sw = scaled_size(H0, f), scaled_size(W0, f)
+        oy = rng.randint(0, max(sh, ch) - ch + 1)
+        ox = rng.randint(0, max(sw, cw) - cw + 1)
+        flip = rng.randint(0, 2) if self.mirror else 0
+        imgs, lbls = native.augment_batch_u8(
+            image[None], label[None], self._identity_lut, np.asarray([f], np.float32),
+            np.asarray([[oy, ox]], np.int32), np.asarray([flip], np.uint8), (ch, cw),
+            self.mean, self.ignore_label)
+        return imgs[0], lbls[0]
 
 
 def _default_cache_bytes() -> int:

@@ -20,6 +20,11 @@ The JAX package's ``matmul`` sampler is not carried over.
 :func:`finish_u8_crops` is the device tail of the uint8-crop input path,
 and :func:`host_augment_u8` its numpy/cv2 host half (cv2 is imported when
 it is called).
+
+:func:`host_augment` is the host augmenter of variable-size datasets (VOC),
+the JAX package's ``host_augment`` with its cv2 resizes replaced by numpy
+ones of the same semantics (:func:`resize_linear`, :func:`resize_nearest`),
+so it runs where cv2 is not installed.
 """
 
 from __future__ import annotations
@@ -169,3 +174,105 @@ def host_augment_u8(image: np.ndarray, label: np.ndarray, rng: np.random.RandomS
         image = image[:, ::-1]
         label = label[:, ::-1]
     return np.ascontiguousarray(image), np.ascontiguousarray(label)
+
+
+def scaled_size(n: int, f: float) -> int:
+    """cv2's output length of ``cv2.resize(fx=f)`` on an ``n``-pixel side:
+    ``n·f`` rounded half to even (``saturate_cast<int>``), as Python's
+    ``round`` does."""
+    return int(round(n * f))
+
+
+def _linear_taps(idx: np.ndarray, n_in: int, f: float, f32_coords: bool):
+    """cv2 INTER_LINEAR's taps of output pixels ``idx`` of one axis: source
+    ``(i + 0.5) · (1/f) − 0.5`` and its fraction in double (``f32_coords``:
+    the source rounded to f32 first, as cv2 does for an image of one row or
+    one column), the weight cast to f32; below 0 the first pixel alone, past
+    the last pixel the last alone. ``(lo, hi, weight of hi)``."""
+    src = (idx + 0.5) * (1.0 / f) - 0.5
+    if f32_coords:
+        src = src.astype(np.float32).astype(np.float64)
+    lo = np.floor(src).astype(np.int64)
+    w = (src - lo).astype(np.float32)
+    w[lo < 0] = 0.0
+    lo = np.maximum(lo, 0)
+    w[lo >= n_in - 1] = 0.0
+    lo = np.minimum(lo, n_in - 1)
+    return lo, np.minimum(lo + 1, n_in - 1), w
+
+
+def _resample(image: np.ndarray, f: float, rows: np.ndarray, cols: np.ndarray,
+              linear: bool) -> np.ndarray:
+    """Pixels ``rows`` × ``cols`` of ``cv2.resize(image, None, fx=f, fy=f)``,
+    INTER_LINEAR (f32, each row's lerp across the width first, then down, as
+    cv2 does) or INTER_NEAREST (source ``min(floor(i · (1/f)), n − 1)`` in
+    double), computed for those pixels alone. An unchanged size is a copy,
+    as in cv2."""
+    H, W = image.shape[:2]
+    if (scaled_size(H, f), scaled_size(W, f)) == (H, W):
+        return image[rows][:, cols]
+    if not linear:
+        ny = np.minimum(np.floor(rows * (1.0 / f)).astype(np.int64), H - 1)
+        nx = np.minimum(np.floor(cols * (1.0 / f)).astype(np.int64), W - 1)
+        return image[ny][:, nx]
+    line = min(H, W) == 1
+    xlo, xhi, wx = _linear_taps(cols, W, f, line)
+    ylo, yhi, wy = _linear_taps(rows, H, f, line)
+    wx = wx.reshape((1, -1) + (1,) * (image.ndim - 2))
+    wy = wy.reshape((-1,) + (1,) * (image.ndim - 1))
+    top, bottom = image[ylo], image[yhi]
+    top = top[:, xlo] * (1.0 - wx) + top[:, xhi] * wx
+    bottom = bottom[:, xlo] * (1.0 - wx) + bottom[:, xhi] * wx
+    return top * (1.0 - wy) + bottom * wy
+
+
+def resize_linear(image: np.ndarray, f: float) -> np.ndarray:
+    """``cv2.resize(image, None, fx=f, fy=f, interpolation=cv2.INTER_LINEAR)``
+    of an (H, W[, C]) f32 image in numpy (within 1e-3 of cv2 on 0–255
+    images)."""
+    image = np.asarray(image, np.float32)
+    H, W = image.shape[:2]
+    return _resample(image, f, np.arange(scaled_size(H, f)), np.arange(scaled_size(W, f)), True)
+
+
+def resize_nearest(label: np.ndarray, f: float) -> np.ndarray:
+    """``cv2.resize(label, None, fx=f, fy=f, interpolation=cv2.INTER_NEAREST)``
+    in numpy (equal to cv2's)."""
+    H, W = label.shape[:2]
+    return _resample(label, f, np.arange(scaled_size(H, f)), np.arange(scaled_size(W, f)),
+                     False)
+
+
+def host_augment(image: np.ndarray, label: np.ndarray, rng: np.random.RandomState,
+                 crop_hw: Tuple[int, int] = (769, 769), mean=CITYSCAPES_MEAN_BGR,
+                 ignore_label: int = 255, scale: bool = True, mirror: bool = True,
+                 scale_min: float = SCALE_MIN, scale_steps: int = SCALE_STEPS):
+    """Scale, mean-subtract, pad, crop and mirror one (H, W, 3) f32 BGR image
+    and its (H, W) labels on the host: ``(crop image f32, crop labels)``.
+
+    The JAX package's ``host_augment`` with numpy resizes of cv2's semantics
+    (bilinear image, nearest uint8 label), computed for the crop window
+    alone (the scaled size, and so the crop's draws, need no pixel). The rng
+    is consumed in its order: scale, oy, ox, mirror."""
+    ch, cw = crop_hw
+    H, W = label.shape
+    if scale:
+        f = scale_min + SCALE_STEP * rng.randint(0, scale_steps)
+        h, w = scaled_size(H, f), scaled_size(W, f)
+    else:
+        h, w = H, W
+    oy = rng.randint(0, max(h, ch) - ch + 1)
+    ox = rng.randint(0, max(w, cw) - cw + 1)
+    rows, cols = np.arange(oy, min(oy + ch, h)), np.arange(ox, min(ox + cw, w))
+    if scale:
+        img = _resample(np.asarray(image, np.float32), f, rows, cols, True)
+        lbl = _resample(label.astype(np.uint8), f, rows, cols, False).astype(label.dtype)
+    else:
+        img, lbl = image[rows][:, cols], label[rows][:, cols]
+    out_img = np.zeros((ch, cw, 3), np.float32)  # the pad: 0 after the mean
+    out_img[:len(rows), :len(cols)] = img.astype(np.float32) - np.asarray(mean, np.float32)
+    out_lbl = np.full((ch, cw), ignore_label, label.dtype)
+    out_lbl[:len(rows), :len(cols)] = lbl
+    if mirror and rng.randint(0, 2):
+        out_img, out_lbl = out_img[:, ::-1], out_lbl[:, ::-1]
+    return np.ascontiguousarray(out_img), np.ascontiguousarray(out_lbl)

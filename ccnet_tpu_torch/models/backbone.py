@@ -10,20 +10,88 @@ Counterpart of :mod:`ccnet_tpu.models.backbone`, with the same geometry:
 * the layer3 feature is returned for the DSN auxiliary head.
 
 Module names are the reference's torch names (``conv1``, ``layer1.0``,
-``downsample.0``), which the JAX package's ``.pth`` export writes. The JAX
-package's remat policies (``checkpoint_name``) are not carried over.
+``downsample.0``), which the JAX package's ``.pth`` export writes.
+
+``remat`` recomputes bottleneck blocks in the backward instead of keeping
+their activations, with the JAX package's modes: ``True`` (``--remat
+blocks`` in the CLI) each block of layers 3 and 4, a tuple of layer indices each block
+of those layers, ``"conv12"`` the blocks of layers 3 and 4 keeping conv1's
+and conv2's outputs (only the BN/ReLU chain, conv3 and the shortcut are
+recomputed) and ``"convs"`` also keeping conv3's. A block is wrapped in
+``torch.utils.checkpoint`` (non-reentrant); the string modes add a
+selective-checkpoint policy that saves the first two (three) convolutions
+the block runs, which are conv1, conv2 (and conv3), before the shortcut's.
+The recompute runs inside :func:`~ccnet_tpu_torch.nn.layers.recomputing`,
+so BN's running stats are updated once per step, as in the JAX package.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from contextlib import contextmanager, nullcontext
+from typing import Any, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
-from ccnet_tpu_torch.nn.layers import ABN, Conv
+from ccnet_tpu_torch.nn.layers import ABN, Conv, recomputing
 from ccnet_tpu_torch.ops.pooling import max_pool_ceil
+
+# remat mode -> (the layers whose blocks are recomputed, convolutions kept per block)
+_REMAT_KEEP = {"conv12": 2, "convs": 3}
+
+
+def remat_plan(remat: Any) -> Tuple[frozenset, int | None]:
+    """``(layers, kept)``: the layers whose blocks are checkpointed, and how
+    many of each block's first convolution outputs are kept (None: none)."""
+    if remat is True:
+        return frozenset({3, 4}), None
+    if not remat:
+        return frozenset(), None
+    if remat in _REMAT_KEEP:
+        return frozenset({3, 4}), _REMAT_KEEP[remat]
+    if isinstance(remat, str):
+        raise ValueError(f"unknown remat mode {remat!r}")
+    return frozenset(int(li) for li in remat), None
+
+
+def _keep_first_convs(n: int):
+    """A selective-checkpoint policy saving the first ``n`` convolutions of
+    one call (counted apart in the forward and, where torch asks the policy
+    again, in the recompute)."""
+    seen = {False: 0, True: 0}
+
+    def policy(ctx, op, *args, **kwargs):
+        if op is torch.ops.aten.convolution.default:
+            seen[ctx.is_recompute] += 1
+            if seen[ctx.is_recompute] <= n:
+                return CheckpointPolicy.MUST_SAVE
+        return CheckpointPolicy.PREFER_RECOMPUTE
+
+    return policy
+
+
+@contextmanager
+def _recompute(selective):
+    with selective, recomputing():
+        yield
+
+
+def _remat_block(block: nn.Module, x: torch.Tensor, kept: int | None) -> torch.Tensor:
+    def contexts():
+        if kept is None:
+            return nullcontext(), recomputing()
+        forward, recompute = create_selective_checkpoint_contexts(_keep_first_convs(kept))
+        return forward, _recompute(recompute)
+
+    # a bottleneck draws no random numbers, so no RNG state is stashed
+    return checkpoint(block, x, use_reentrant=False, preserve_rng_state=False,
+                      context_fn=contexts)
 
 
 class Bottleneck(nn.Module):
@@ -54,11 +122,14 @@ class Bottleneck(nn.Module):
 
 
 class DilatedResNet(nn.Module):
-    """Deep-stem dilated ResNet trunk; :meth:`forward` returns (layer3, layer4)."""
+    """Deep-stem dilated ResNet trunk; :meth:`forward` returns (layer3, layer4).
+    ``remat``: see the module's note (:func:`remat_plan`)."""
 
-    def __init__(self, layers: Sequence[int] = (3, 4, 23, 3), dtype=torch.float32):
+    def __init__(self, layers: Sequence[int] = (3, 4, 23, 3), dtype=torch.float32,
+                 remat: Any = False):
         super().__init__()
         self.dtype = dtype
+        self.remat_layers, self.remat_kept = remat_plan(remat)
         self.conv1 = Conv(3, 64, 3, stride=2, padding=1, bias=False, dtype=dtype)
         self.bn1 = ABN(64, "identity")
         self.conv2 = Conv(64, 64, 3, padding=1, bias=False, dtype=dtype)
@@ -89,6 +160,10 @@ class DilatedResNet(nn.Module):
         x = F.relu(self.bn2(self.conv2(x)))
         x = F.relu(self.bn3(self.conv3(x)))
         x = max_pool_ceil(x, 3, 2, 1)
-        x = self.layer2(self.layer1(x))
-        x3 = self.layer3(x)
-        return x3, self.layer4(x3)
+        feats = []
+        for li in (1, 2, 3, 4):
+            remat = li in self.remat_layers and self.training and torch.is_grad_enabled()
+            for block in getattr(self, f"layer{li}"):
+                x = _remat_block(block, x, self.remat_kept) if remat else block(x)
+            feats.append(x)
+        return feats[2], feats[3]

@@ -30,7 +30,7 @@ acts in train mode only.
 from __future__ import annotations
 
 import math
-from typing import Dict, Sequence
+from typing import Any, Dict, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -164,8 +164,8 @@ class CCNet(DSNSegmenter):
 
     def __init__(self, num_classes: int = 19, layers: Sequence[int] = (3, 4, 23, 3),
                  recurrence: int = 2, impl: str = "auto", drop_rate: float = 0.1,
-                 dtype=torch.float32):
-        super().__init__(layers, dtype=dtype)
+                 dtype=torch.float32, remat: Any = False):
+        super().__init__(layers, dtype=dtype, remat=remat)
         self.head = RCCAModule(num_classes, recurrence=recurrence, impl=impl,
                                drop_rate=drop_rate, dtype=dtype)
         self.dsn = DSNHead(num_classes, drop_rate=drop_rate, dtype=dtype)

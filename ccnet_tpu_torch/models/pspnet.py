@@ -18,7 +18,7 @@ training sends its logits through the K5/K6 criterion as CCNet's.
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Any, Sequence
 
 import torch
 from torch import nn
@@ -58,8 +58,8 @@ class PSPNet(DSNSegmenter):
     """Dilated ResNet + PSP head. Returns {'main', 'aux'} f32 logits at OS 8."""
 
     def __init__(self, num_classes: int = 19, layers: Sequence[int] = (3, 4, 23, 3),
-                 drop_rate: float = 0.1, dtype=torch.float32):
-        super().__init__(layers, dtype=dtype)
+                 drop_rate: float = 0.1, dtype=torch.float32, remat: Any = False):
+        super().__init__(layers, dtype=dtype, remat=remat)
         self.head = nn.Sequential(PSPModule(drop_rate=drop_rate, dtype=dtype),
                                   Conv(512, num_classes, 1, bias=True, dtype=dtype))
         self.dsn = DSNHead(num_classes, drop_rate=drop_rate, dtype=dtype)

@@ -7,6 +7,8 @@ ignore ``recurrence`` and ``impl``, as the JAX registry does.
 
 from __future__ import annotations
 
+from typing import Any
+
 import torch
 
 from ccnet_tpu_torch.models.ccnet import CCNet
@@ -18,10 +20,12 @@ _DEPTH_LAYERS = {50: (3, 4, 6, 3), 101: (3, 4, 23, 3), 152: (3, 8, 36, 3)}
 
 def build_model(name: str, num_classes: int = 19, recurrence: int = 2, depth: int = 101,
                 dtype=torch.float32, impl: str = "auto", seed: int = 0,
-                device: torch.device | str = "cpu", drop_rate: float = 0.1):
+                device: torch.device | str = "cpu", drop_rate: float = 0.1,
+                remat: Any = False):
     """Build a segmentation model by name, its initial weights drawn from
     ``seed`` (without touching the global torch generator), in eval mode on
-    ``device``."""
+    ``device``. ``remat``: the backbone's activation recompute in training
+    (:func:`~ccnet_tpu_torch.models.backbone.remat_plan`)."""
     if depth not in _DEPTH_LAYERS:
         raise ValueError(f"unknown depth {depth}; available: {sorted(_DEPTH_LAYERS)}")
     layers = _DEPTH_LAYERS[depth]
@@ -29,13 +33,13 @@ def build_model(name: str, num_classes: int = 19, recurrence: int = 2, depth: in
         torch.manual_seed(seed)
         if name == "ccnet":
             model = CCNet(num_classes=num_classes, layers=layers, recurrence=recurrence,
-                          impl=impl, drop_rate=drop_rate, dtype=dtype)
+                          impl=impl, drop_rate=drop_rate, dtype=dtype, remat=remat)
         elif name == "pspnet":
             model = PSPNet(num_classes=num_classes, layers=layers, drop_rate=drop_rate,
-                           dtype=dtype)
+                           dtype=dtype, remat=remat)
         elif name == "deeplabv3":
             model = DeepLabV3(num_classes=num_classes, layers=layers, drop_rate=drop_rate,
-                              dtype=dtype)
+                              dtype=dtype, remat=remat)
         else:
             raise ValueError(f"unknown model {name!r}; available: ccnet, pspnet, deeplabv3")
     return model.eval().to(device)

@@ -19,10 +19,17 @@ Counterpart of :mod:`ccnet_tpu.nn.layers`, NCHW.
   rounding), and the running variance updated with ``var·n/max(n−1, 1)``
   = 0. Its buffers are ``running_mean`` and
   ``running_var`` only (no ``num_batches_tracked``), so the JAX package's
-  ``.pth`` export loads with ``strict=True``.
+  ``.pth`` export loads with ``strict=True``. Inside :func:`recomputing`
+  (the backward's recompute of a checkpointed block) it normalises as in
+  the forward but updates its running stats with momentum 0, which leaves
+  them as they are: the step updates them once, as flax's ``nn.remat``
+  does, and the recompute runs the same operations as the forward.
 """
 
 from __future__ import annotations
+
+import threading
+from contextlib import contextmanager
 
 import torch
 import torch.nn.functional as F
@@ -44,6 +51,21 @@ class Conv(nn.Conv2d):
         return self._conv_forward(x.to(dt), self.weight.to(dt), bias)
 
 
+_STATE = threading.local()
+
+
+@contextmanager
+def recomputing():
+    """Mark the enclosed forward, on this thread, as the recompute of an
+    activation checkpoint: :class:`ABN` leaves its running stats alone."""
+    before = getattr(_STATE, "recomputing", False)
+    _STATE.recomputing = True
+    try:
+        yield
+    finally:
+        _STATE.recomputing = before
+
+
 class ABN(nn.Module):
     """Activated batch norm: BN then identity / leaky-ReLU(0.01)."""
 
@@ -60,11 +82,12 @@ class ABN(nn.Module):
         self.register_buffer("running_var", torch.ones(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        momentum = 0.0 if getattr(_STATE, "recomputing", False) else self.momentum
         if self.training and x.numel() == x.shape[1]:
-            y = self._train_one_value(x)
+            y = self._train_one_value(x, momentum)
         elif self.training:
             y = F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
-                             training=True, momentum=self.momentum, eps=self.eps)
+                             training=True, momentum=momentum, eps=self.eps)
         else:
             scale = self.weight * torch.rsqrt(self.running_var + self.eps)
             shift = self.bias - self.running_mean * scale
@@ -73,12 +96,12 @@ class ABN(nn.Module):
             y = torch.where(y >= 0, y, y * self.slope)
         return y
 
-    def _train_one_value(self, x: torch.Tensor) -> torch.Tensor:
+    def _train_one_value(self, x: torch.Tensor, momentum: float) -> torch.Tensor:
         """Train mode with one value per channel: the JAX ABN's formula."""
         mean = x.float().mean(dim=(0, 2, 3))
         scale = self.weight * self.eps ** -0.5  # rsqrt(var + eps) at var = 0
         shift = self.bias - mean * scale
         with torch.no_grad():
-            self.running_mean.mul_(1 - self.momentum).add_(self.momentum * mean)
-            self.running_var.mul_(1 - self.momentum)  # + momentum * 0
+            self.running_mean.mul_(1 - momentum).add_(momentum * mean)
+            self.running_var.mul_(1 - momentum)  # + momentum * 0
         return x * scale.to(x.dtype)[:, None, None] + shift.to(x.dtype)[:, None, None]

@@ -12,20 +12,30 @@ kernels; ``impl="torch"`` takes the plain versions of both. ``model`` is
 ``impl`` routes only their loss. The loader's batches reach the device
 through :func:`~ccnet_tpu_torch.data.loader.device_prefetch`: batch i+1 is
 copied (pinned buffers, a side stream) while step i runs, on every
-``augment_backend``; the augmentation runs on the device in the step.
+``augment_backend``; the augmentation runs on the device in the step, but
+for ``"native"``, which augments on the prefetch thread with the C++/OpenMP
+library (draws seeded per step as in the JAX package) and copies the crops.
 
-Not ported yet (they raise): ``augment_backend="native"``, ``remat`` other
-than off, ``tensorboard`` and ``profile_steps``; ``space`` > 1.
+``remat`` recomputes backbone blocks in the backward
+(:func:`~ccnet_tpu_torch.models.backbone.remat_plan`). ``profile_steps=
+(start, stop)`` traces steps [start, stop) with ``torch.profiler`` into a
+chrome trace under ``snapshot_dir/profile``; ``tensorboard`` writes
+``train/loss``, ``train/lr`` and ``train/img_per_s`` every ``log_every``
+steps to ``snapshot_dir/tb``. Each of these two warns and goes on where it
+is unavailable. ``space`` > 1 (height sharding) is not ported and raises.
 """
 
 from __future__ import annotations
 
+import functools
+import itertools
 import os
 import os.path as osp
 import time
 from dataclasses import dataclass
 from typing import Any, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ccnet_tpu_torch.data.loader import HostToDevice, device_prefetch
@@ -73,16 +83,17 @@ class TrainConfig:
     start_step: int = 0
     seed: int = 0
     bf16: bool = True
-    remat: Any = False  # not ported yet: only False
+    remat: Any = False  # False | True (layers 3-4) | 'conv12' | 'convs' | tuple of layers
     impl: str = "auto"  # criss-cross attention and NLL: torch | kernel | auto
     export_pth: bool = True
     log_every: int = 10
     space: int = 1
     mean: Tuple[float, float, float] = CITYSCAPES_MEAN_BGR
     # 'device': the torch gather sampler on the device, raw images in;
-    # 'host_u8': the loader yields uint8 crops (U8CropDataset), the device
-    # widens and subtracts the mean; 'precropped': the loader yields final
-    # crops; 'native' is not ported yet
+    # 'native': the C++/OpenMP host kernel (ccnet_tpu_torch/native), f32
+    # crops copied; 'host_u8': the loader yields uint8 crops (U8CropDataset),
+    # the device widens and subtracts the mean; 'precropped': the loader
+    # yields final crops
     augment_backend: str = "device"
     random_scale: bool = True
     random_mirror: bool = True
@@ -96,17 +107,17 @@ class TrainConfig:
 class Trainer:
     def __init__(self, config: TrainConfig):
         self.cfg = c = config
-        for name, off in (("augment_backend='native'", c.augment_backend == "native"),
-                          ("remat", bool(c.remat)), ("tensorboard", c.tensorboard),
-                          ("profile_steps", c.profile_steps is not None),
-                          ("space > 1", c.space > 1)):
-            if off:
-                raise NotImplementedError(f"TrainConfig {name} is not ported yet")
+        if c.space > 1:
+            raise NotImplementedError("TrainConfig space > 1 is not ported yet")
+        if c.augment_backend == "native":
+            from ccnet_tpu_torch import native
+
+            native.load()  # raises here, not in the first step, if it does not build
         self.logger = get_logger("ccnet_tpu_torch.train")
         self.device = torch.device(c.device)
         model = build_model(c.model, num_classes=c.num_classes, recurrence=c.recurrence,
                             depth=c.depth, dtype=torch.bfloat16 if c.bf16 else torch.float32,
-                            impl=c.impl, seed=c.seed, device=self.device)
+                            impl=c.impl, seed=c.seed, device=self.device, remat=c.remat)
         self.criterion = build_criterion(ohem=c.ohem, ignore_label=c.ignore_label,
                                          thresh=c.ohem_thres, min_kept=c.ohem_keep,
                                          impl=c.impl)
@@ -126,11 +137,41 @@ class Trainer:
         self.state.step = self.start_step
         self.train_step = make_train_step(self.criterion, seed=c.seed + 2)
         self._copier = HostToDevice(self.device)
+        self.tb_writer = None
+        if c.tensorboard:
+            try:
+                from torch.utils.tensorboard import SummaryWriter
+
+                self.tb_writer = SummaryWriter(osp.join(c.snapshot_dir, "tb"))
+            except Exception as e:  # noqa: BLE001 - an optional extra, as in the JAX package
+                self.logger.warning(f"tensorboard unavailable: {e}")
 
     def _place(self, images, labels) -> tuple:
         """The loader batch's one host→device copy, on the prefetch thread:
         ``(Transfer,)`` of the raw ``(images, labels)``."""
         return (self._copier(images, labels),)
+
+    def _native_crops(self, images, labels, steps) -> tuple:
+        """``augment_backend="native"``: the batch of the step ``next(steps)``
+        augmented on the host by the native library, with the JAX package's
+        draws (one process: index 0), then copied; ``(Transfer,)`` of the f32
+        crops and int32 labels. Runs on the prefetch thread, which places the
+        batches in their steps' order."""
+        from ccnet_tpu_torch import native
+
+        c = self.cfg
+        step = next(steps)
+        rng = np.random.RandomState((c.seed + step * 1009) % (2 ** 31))
+        images, labels = np.asarray(images), np.asarray(labels)
+        scales, offs, flips = native.draw_augment_params(
+            rng, images.shape[0], images.shape[1:3], tuple(c.input_size),
+            scale_min=c.scale_min if c.random_scale else 1.0,
+            scale_steps=c.scale_steps if c.random_scale else 1, mirror=c.random_mirror)
+        lut = np.arange(256, dtype=np.uint8)  # the labels arrive trainId-mapped
+        crops = native.augment_batch(images.astype(np.uint8), labels.astype(np.uint8), lut,
+                                     scales, offs, flips, tuple(c.input_size), c.mean,
+                                     c.ignore_label)
+        return (self._copier(*crops),)
 
     def _augment(self, images: torch.Tensor, labels: torch.Tensor, step: int):
         """Placed raw batch (NHWC) → ``(images (B, 3, H, W) f32, labels
@@ -143,11 +184,44 @@ class Trainer:
                 scale_steps=c.scale_steps, scale=c.random_scale, mirror=c.random_mirror)
         elif c.augment_backend == "host_u8":
             imgs, lbls = finish_u8_crops(images, labels, mean=tuple(c.mean))
-        elif c.augment_backend == "precropped":
+        elif c.augment_backend in ("precropped", "native"):
             imgs, lbls = images.float(), labels.to(torch.int32)
         else:
             raise ValueError(f"unknown augment_backend {c.augment_backend!r}")
         return imgs.permute(0, 3, 1, 2).contiguous(), lbls
+
+    def _start_profiler(self):
+        """A started ``torch.profiler`` over the host and, on a card, CUDA
+        activity; None, with a warning, where it cannot start."""
+        try:
+            from torch.profiler import ProfilerActivity, profile
+
+            activities = [ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                activities.append(ProfilerActivity.CUDA)
+            profiler = profile(activities=activities)
+            profiler.__enter__()
+        except Exception as e:  # noqa: BLE001 - an optional extra, as in the JAX package
+            self.logger.warning(f"profiler unavailable: {e}")
+            return None
+        self.logger.info("profiler trace started")
+        return profiler
+
+    def _stop_profiler(self, profiler) -> None:
+        """Stop ``profiler`` and write its chrome trace to
+        ``snapshot_dir/profile/trace_<start>_<stop>.json``."""
+        c = self.cfg
+        try:
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            profiler.__exit__(None, None, None)
+            out = osp.join(c.snapshot_dir, "profile")
+            os.makedirs(out, exist_ok=True)
+            path = osp.join(out, f"trace_{c.profile_steps[0]}_{c.profile_steps[1]}.json")
+            profiler.export_chrome_trace(path)
+            self.logger.info(f"profiler trace written to {path}")
+        except Exception as e:  # noqa: BLE001 - an optional extra, as in the JAX package
+            self.logger.warning(f"profiler trace not written: {e}")
 
     def _save(self, step: int):
         c = self.cfg
@@ -183,13 +257,17 @@ class Trainer:
         it = None
         last_loss = float("nan")
         events, wall, losses = [], [], []
+        profiler = None
         last_t = time.perf_counter()
         try:
             while step < c.num_steps:
                 if it is None:
                     loader.set_epoch(epoch)
                     # batch i+1 is copied to the device while step i runs
-                    it = device_prefetch(iter(loader), self._place)
+                    place = self._place
+                    if c.augment_backend == "native":  # and augmented first, for its step
+                        place = functools.partial(self._native_crops, steps=itertools.count(step))
+                    it = device_prefetch(iter(loader), place)
                 t0 = time.perf_counter()
                 try:
                     transfer, _ = next(it)
@@ -198,6 +276,8 @@ class Trainer:
                     it = None
                     continue
                 images, labels = transfer.wait()
+                if c.profile_steps and step == c.profile_steps[0]:
+                    profiler = self._start_profiler()
                 if cuda:
                     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
                     start.record()
@@ -212,6 +292,9 @@ class Trainer:
                     events.append(time.perf_counter() - t_dev)
                 losses.append(metrics["loss"])
                 step = self.state.step
+                if profiler is not None and step == c.profile_steps[1]:
+                    self._stop_profiler(profiler)
+                    profiler = None
                 if step % c.log_every == 0 or step == c.num_steps:
                     last_loss = float(metrics["loss"])  # the one host sync of the loop
                     dt = (time.perf_counter() - last_t) / c.log_every
@@ -220,12 +303,20 @@ class Trainer:
                     self.logger.info(f"step {step}/{c.num_steps} epoch {epoch} loss "
                                      f"{last_loss:.4f} lr {lr:.3e} {dt:.3f} s/step "
                                      f"{c.batch_size / dt:.2f} crops/s")
+                    if self.tb_writer is not None:
+                        self.tb_writer.add_scalar("train/loss", last_loss, step)
+                        self.tb_writer.add_scalar("train/lr", lr, step)
+                        self.tb_writer.add_scalar("train/img_per_s", c.batch_size / dt, step)
                 if step % c.save_every == 0 or step == c.num_steps:
                     self._save(step)
                 wall.append(time.perf_counter() - t0)
         finally:
             if it is not None:  # stop the prefetch and loader threads of a cut epoch
                 it.close()
+            if profiler is not None:  # a run that ended inside the profiled range
+                self._stop_profiler(profiler)
+            if self.tb_writer is not None:
+                self.tb_writer.flush()
         if cuda:
             torch.cuda.synchronize(self.device)
             step_seconds = [a.elapsed_time(b) / 1000.0 for a, b in events]

@@ -13,7 +13,8 @@ failure raises and exits non-zero:
    ``probes``), one ``nvcc`` each, started together;
 3. kernels vs plain: K1 ``cca_fwd_col`` and K2 ``cca_fwd_row`` against their
    plain-torch versions, and the routed op against the joint-softmax
-   oracle, at the sliding-tile, whole-image and edge shapes, in f32 (TF32
+   oracle, at the sliding-tile, VOC (8, 41, 41), whole-image and edge
+   shapes, in f32 (TF32
    off: the CUDA-core kernel) and bf16 (each kernel's own line: lines of at
    most 128 on the one-block tensor-core design, longer ones on K7a's
    tensor-core kernel, as at the whole-image shape and the edge shapes of
@@ -87,14 +88,36 @@ failure raises and exits non-zero:
     windows (K1/K2, every launch on the tensor cores); then ``--whole 1``
     (K7a at 129×257); then multi-scale
     + flip whole image, scales 0.75–1.75, ``--save-preds 1`` (K7a at
-    97×193 … 225×449), whose prediction PNGs are decoded with ``zlib``.
+    97×193 … 225×449), whose prediction PNGs are decoded with the standard
+    library (``data.palette.read_png``).
     Each run's launch counts must show that it went through its kernels;
     the card's s/img (predict + confusion) beside the median host wall
     s/img;
 13. PSPNet-R101 and DeepLabv3-R101 (bf16, seeded random weights): 9 and 10
     (2 steps) at batch 8 of 769² through K5/K6 (2 launches of each per step,
     none of the attention), and sliding ``cli.evaluate --model X
-    --save-preds 1`` of the exported ``.pth`` on the synthetic set.
+    --save-preds 1`` of the exported ``.pth`` on the synthetic set;
+14. VOC loss kernels: K5/K6 at (8, 21, 41, 41) → 321² (21 classes, the
+    kernels' class bound 32) as in 5, then their times and bounds;
+15. VOC end to end: ``scripts/e2e_voc_synthetic.py``'s tree generated in
+    memory (no JPEG round trip: the card decodes none), ``cli.train
+    --dataset voc`` (CCNet R101 R=2 bf16, batch 8 of 321², 300 steps, lr
+    5e-3, no OHEM), K1–K6 launch counts, card and host wall s/step, peak
+    memory; the exported ``.pth`` through the bucketed ``Evaluator`` (tile
+    321, bucket 128) must score held-out meanIU > 0.5 (else the recipe runs
+    again on the plain route and both numbers are raised);
+16. ``cli.predict`` on 2 synthetic 1024×2048 images with 10's ``.pth``,
+    sliding (K1/K2) and ``--whole 1`` (K7a): the labelId PNGs, decoded with
+    ``read_png``, equal the mapped argmax of ``Evaluator.predict_batch``;
+17. ``cli.evaluate --restore-dir`` on 10's snapshots gives the confusion
+    matrix of ``--restore-from`` its ``.pth``, exactly;
+18. ``cli.train --augment-backend native`` (g++ builds the C++/OpenMP
+    augmenter), 4 steps at batch 8 of 769², card beside host wall s/step;
+19. remat: two steps at batch 8 of 769² each with no remat, ``blocks`` and
+    ``conv12``: the first step's grads (layers 3 and 4, the rest), the
+    second step's loss and the BN running stats' update agree, peak memory
+    of each (``blocks`` below none);
+20. ``cli.train --profile-steps 1,2``: the chrome trace names K1/K2.
 
 Every kernel's time stands beside its bound: the larger of the bytes the
 function must move (each input read once, each output written once,
@@ -104,8 +127,9 @@ TB/s and its operations over the peak rate of its inputs' type (989
 TFLOP/s bf16 tensor cores, 67 TFLOP/s f32). Timed calls cycle through
 copies of their inputs that hold 4x the L2 cache between them, so every
 time reads its inputs from HBM as the bound assumes. It prints one JSON
-line of per-kernel results, then, as the last line,
-``{"ok": true, "device": {...}}``.
+line of per-kernel results (launches summed over the main paths that run
+each kernel, 15 and 16 included; K5/K6 also carry their VOC row,
+``voc_321``), then, as the last line, ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --profile
 
@@ -129,19 +153,19 @@ import itertools
 import json
 import math
 import os
-import struct
 import subprocess
 import sys
 import tempfile
 import time
 import warnings
-import zlib
 
 import numpy as np
 import torch
 
 SLIDING = (8, 97, 97, 64, 512)  # B, H, W, Cq, Cv of the sliding tile batch
-SHAPES = [SLIDING, (1, 129, 257, 64, 512), (2, 9, 8, 8, 16), (1, 1, 7, 4, 8), (1, 7, 1, 4, 8)]
+VOC_CCA = (8, 41, 41, 64, 512)  # ... and of the VOC recipe's 321² crops and tiles
+SHAPES = [SLIDING, VOC_CCA, (1, 129, 257, 64, 512), (2, 9, 8, 8, 16), (1, 1, 7, 4, 8),
+          (1, 7, 1, 4, 8)]
 # max |kernel - plain| <= TOL * max(1, max|plain|): f32 differs by summation
 # order only; bf16 outputs are rounded to 8 bits of mantissa (2^-8 = 0.4%)
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
@@ -905,111 +929,133 @@ def _loss_case(shape, seed, live: float = 1.0):
     return logits, torch.from_numpy(labels).cuda(), torch.from_numpy(g).cuda()
 
 
+def _check_loss_case(shape, live: float) -> dict:
+    """K5/K6 and the autograd Function at ``shape`` with int32 and uint8
+    labels and g live on ``live`` of the pixels, against the materialised
+    upsample + NLL and its autograd; returns the largest errors."""
+    from ccnet_tpu_torch.ops import upsampled_ce as U
+
+    logits, labels, g = _loss_case(shape, seed=sum(shape), live=live)
+    errs = {}
+    for lab in (labels, labels.to(torch.uint8)):
+        before = dict(U.LAUNCHES)
+        nll = U.upsampled_nll_fwd(logits, lab)
+        dl = U.upsampled_nll_bwd(logits, lab, g)
+        x = logits.clone().requires_grad_(True)
+        fn_nll = U.UpsampledNLLFn.apply(x, lab)
+        (fn_dl,) = torch.autograd.grad(fn_nll, x, g)
+        torch.cuda.synchronize()
+        if U.LAUNCHES != {n: c + 2 for n, c in before.items()}:
+            raise RuntimeError(f"launch counts did not advance: {before} -> {U.LAUNCHES}")
+        want_nll = U.upsampled_nll_reference(logits, lab)
+        want_dl = U.upsampled_nll_bwd_plain(logits, lab, g)
+        tag = f"{shape} {str(lab.dtype)[6:]} labels, g live on {live:.0%}"
+        if live == 0.0 and float(dl.abs().max()) != 0.0:
+            raise AssertionError(f"K6 at {tag}: a zero g gives a nonzero gradient")
+        for name, got, want, tol in (("K5", nll, want_nll, NLL_TOL),
+                                     ("fn.fwd", fn_nll, want_nll, NLL_TOL),
+                                     ("K6", dl, want_dl, NLL_GRAD_TOL),
+                                     ("fn.bwd", fn_dl, want_dl, NLL_GRAD_TOL)):
+            err = (got - want).abs().max().item()
+            limit = tol * (1.0 if name in ("K5", "fn.fwd") else want.abs().max().item())
+            if not err <= limit:
+                raise AssertionError(f"{name} at {tag}: max abs err {err:.3e} > {limit:.3e}")
+            errs[name] = max(errs.get(name, 0.0), err)
+        del nll, dl, x, fn_nll, fn_dl, want_nll, want_dl
+    log(f"[loss] {shape} (B, h, w, C, r), int32 and uint8 labels, g live on {live:.0%}: ok "
+        f"(K5 <= {NLL_TOL:g} abs, K6 <= {NLL_GRAD_TOL:g} x max|plain grad|) "
+        + " ".join(f"{n}={e:.2e}" for n, e in errs.items()))
+    del logits, labels, g
+    torch.cuda.empty_cache()
+    return errs
+
+
 def phase_loss_kernels() -> dict:
     """K5/K6 against the materialised upsample + NLL and its autograd, int32
     and uint8 labels, at every shape of LOSS_SHAPES, with a dense g and, at
     the 769² shape, a g nonzero on SPARSE_G of the pixels and one zero
     everywhere; then :func:`loss_times` and :func:`criterion_ab`."""
-    from ccnet_tpu_torch.ops import upsampled_ce as U
-
-    errs = {}
     cases = [(shape, 1.0) for shape in LOSS_SHAPES] + [(LOSS_SHAPES[0], SPARSE_G),
                                                        (LOSS_SHAPES[0], 0.0)]
     for shape, live in cases:
-        logits, labels, g = _loss_case(shape, seed=sum(shape), live=live)
-        errs = {}
-        for lab in (labels, labels.to(torch.uint8)):
-            before = dict(U.LAUNCHES)
-            nll = U.upsampled_nll_fwd(logits, lab)
-            dl = U.upsampled_nll_bwd(logits, lab, g)
-            x = logits.clone().requires_grad_(True)
-            fn_nll = U.UpsampledNLLFn.apply(x, lab)
-            (fn_dl,) = torch.autograd.grad(fn_nll, x, g)
-            torch.cuda.synchronize()
-            if U.LAUNCHES != {n: c + 2 for n, c in before.items()}:
-                raise RuntimeError(f"launch counts did not advance: {before} -> {U.LAUNCHES}")
-            want_nll = U.upsampled_nll_reference(logits, lab)
-            want_dl = U.upsampled_nll_bwd_plain(logits, lab, g)
-            tag = f"{shape} {str(lab.dtype)[6:]} labels, g live on {live:.0%}"
-            if live == 0.0 and float(dl.abs().max()) != 0.0:
-                raise AssertionError(f"K6 at {tag}: a zero g gives a nonzero gradient")
-            for name, got, want, tol in (("K5", nll, want_nll, NLL_TOL),
-                                         ("fn.fwd", fn_nll, want_nll, NLL_TOL),
-                                         ("K6", dl, want_dl, NLL_GRAD_TOL),
-                                         ("fn.bwd", fn_dl, want_dl, NLL_GRAD_TOL)):
-                err = (got - want).abs().max().item()
-                limit = tol * (1.0 if name in ("K5", "fn.fwd") else want.abs().max().item())
-                if not err <= limit:
-                    raise AssertionError(f"{name} at {tag}: max abs err {err:.3e} > {limit:.3e}")
-                errs[name] = max(errs.get(name, 0.0), err)
-            del nll, dl, x, fn_nll, fn_dl, want_nll, want_dl
+        errs = _check_loss_case(shape, live)
         if shape == LOSS_SHAPES[0] and live == 1.0:
             report = {"upsampled_nll_fwd": {"max_abs_err": errs["K5"]},
                       "upsampled_nll_bwd": {"max_abs_err": errs["K6"]}}
-        log(f"[loss] {shape} (B, h, w, C, r), int32 and uint8 labels, g live on {live:.0%}: ok "
-            f"(K5 <= {NLL_TOL:g} abs, K6 <= {NLL_GRAD_TOL:g} x max|plain grad|) "
-            + " ".join(f"{n}={e:.2e}" for n, e in errs.items()))
-        del logits, labels, g
-        torch.cuda.empty_cache()
     for name, r in loss_times().items():
         report[name].update(r)
     criterion_ab()
     return report
 
 
-def loss_times() -> dict:
-    """CUDA-event times of K5 and K6 and of their plain versions at the
-    shapes of LOSS_TIMED, K6 with a dense g and with one live on SPARSE_G of
-    the pixels, each beside its bound; returns the 769² numbers as the
-    report's. Uses only what every version of ``ccnet_tpu_torch`` has, so
-    it also times an earlier tree's kernels (run from its checkout)."""
+def _loss_shape_times(tag: str, shape) -> tuple:
+    """CUDA-event times of K5 and K6 and of their plain versions at
+    ``shape``, K6 with a dense g, with one live on SPARSE_G of the pixels and
+    with g = 0, each beside its bound (logged); returns ``(times, bounds)``."""
     from ccnet_tpu_torch.ops import upsampled_ce as U
 
+    B, h, w, C, r = shape
+    t, b = {}, {}
+    for live in (1.0, SPARSE_G, 0.0):  # g = 0: K6's cost without a softmax
+        logits, labels, g = _loss_case(shape, seed=7, live=live)
+        kind = {1.0: "dense", SPARSE_G: "sparse", 0.0: "zero g"}[live]
+        t[f"K6 {kind}"] = _time_ms(U.upsampled_nll_bwd, logits, labels, g)
+        # the operations the function needs per live fine pixel and class:
+        # the height lerp (2), the width lerp shared by r rows (~1), exp
+        # and sum (2); the backward twice that (recompute, then the
+        # transposed lerps); every valid pixel's nll, the live pixels' grad
+        valid = int((labels != 255).sum())
+        active = int(((labels != 255) & (g != 0)).sum())
+        b[f"K6 {kind}"] = _bound((logits, labels, g), (U.upsampled_nll_bwd(logits, labels, g),),
+                                 10 * C * active, torch.float32)
+        if live == 1.0:
+            t["K5"] = _time_ms(U.upsampled_nll_fwd, logits, labels)
+            t["K5 plain"] = _time_ms(U.upsampled_nll_reference, logits, labels)
+            b["K5"] = _bound((logits, labels), (U.upsampled_nll_fwd(logits, labels),),
+                             5 * C * valid, torch.float32)
+            graphs = []  # one graph per copy of the inputs, its backward timed alone
+            for lg, lab, gg in _copies((logits, labels, g)):
+                x = lg.clone().requires_grad_(True)
+                graphs.append((U.upsampled_nll_reference(x, lab), x, gg))
+            t["K6 plain"] = _time_ms(
+                lambda nll, x, g_: torch.autograd.grad(nll, x, g_, retain_graph=True),
+                sets=graphs)
+            del graphs
+        del logits, labels, g
+        torch.cuda.empty_cache()
+    log(f"[loss] times at {shape} (B, h, w, C, r) -> {tag}, ms (median of {TIMING_REPS}): "
+        + ", ".join(f"{n} {ms:.4f}" for n, ms in t.items())
+        + f"; K6 dense / sparse {t['K6 dense'] / t['K6 sparse']:.2f}; bounds "
+        + ", ".join(f"{n} {x['bound_ms']:.4f} ms by {x['bound_by']} ({x['bound_ms'] / t[n]:.1%} "
+                    f"of it; {x['bound_bytes'] / 1e6:.1f} MB, {x['bound_flops'] / 1e9:.2f} GFLOP)"
+                    for n, x in b.items()))
+    return t, b
+
+
+def _loss_rows(t: dict, b: dict) -> dict:
+    """K5's and K6's (dense g) report rows from :func:`_loss_shape_times`."""
+    rows = {}
+    for name, kern in (("upsampled_nll_fwd", "K5"), ("upsampled_nll_bwd", "K6 dense")):
+        plain = t[f"{kern.split()[0]} plain"]
+        rows[name] = {"ms": t[kern], "plain_ms": plain, "library_ms": None, **b[kern],
+                      "share": b[kern]["bound_ms"] / t[kern]}
+    rows["upsampled_nll_bwd"]["sparse_ms"] = t["K6 sparse"]
+    return rows
+
+
+def loss_times() -> dict:
+    """:func:`_loss_shape_times` at the shapes of LOSS_TIMED; returns the
+    769² numbers as the report's. Uses only what every version of
+    ``ccnet_tpu_torch`` has, so it also times an earlier tree's kernels (run
+    from its checkout)."""
     report = {}
     for tag, shape in LOSS_TIMED.items():
-        B, h, w, C, r = shape
-        t, b = {}, {}
-        for live in (1.0, SPARSE_G, 0.0):  # g = 0: K6's cost without a softmax
-            logits, labels, g = _loss_case(shape, seed=7, live=live)
-            kind = {1.0: "dense", SPARSE_G: "sparse", 0.0: "zero g"}[live]
-            t[f"K6 {kind}"] = _time_ms(U.upsampled_nll_bwd, logits, labels, g)
-            # the operations the function needs per live fine pixel and class:
-            # the height lerp (2), the width lerp shared by r rows (~1), exp
-            # and sum (2); the backward twice that (recompute, then the
-            # transposed lerps); every valid pixel's nll, the live pixels' grad
-            valid = int((labels != 255).sum())
-            active = int(((labels != 255) & (g != 0)).sum())
-            b[f"K6 {kind}"] = _bound((logits, labels, g), (U.upsampled_nll_bwd(logits, labels, g),),
-                                     10 * C * active, torch.float32)
-            if live == 1.0:
-                t["K5"] = _time_ms(U.upsampled_nll_fwd, logits, labels)
-                t["K5 plain"] = _time_ms(U.upsampled_nll_reference, logits, labels)
-                b["K5"] = _bound((logits, labels), (U.upsampled_nll_fwd(logits, labels),),
-                                 5 * C * valid, torch.float32)
-                graphs = []  # one graph per copy of the inputs, its backward timed alone
-                for lg, lab, gg in _copies((logits, labels, g)):
-                    x = lg.clone().requires_grad_(True)
-                    graphs.append((U.upsampled_nll_reference(x, lab), x, gg))
-                t["K6 plain"] = _time_ms(
-                    lambda nll, x, g_: torch.autograd.grad(nll, x, g_, retain_graph=True),
-                    sets=graphs)
-                del graphs
-            del logits, labels, g
-            torch.cuda.empty_cache()
-        log(f"[loss] times at {shape} (B, h, w, C, r) -> {tag}, ms (median of {TIMING_REPS}): "
-            + ", ".join(f"{n} {ms:.4f}" for n, ms in t.items())
-            + f"; K6 dense / sparse {t['K6 dense'] / t['K6 sparse']:.2f}; bounds "
-            + ", ".join(f"{n} {x['bound_ms']:.4f} ms by {x['bound_by']} ({x['bound_ms'] / t[n]:.1%} "
-                        f"of it; {x['bound_bytes'] / 1e6:.1f} MB, {x['bound_flops'] / 1e9:.2f} GFLOP)"
-                        for n, x in b.items()))
+        t, b = _loss_shape_times(tag, shape)
         if shape == LOSS_SHAPES[0]:
-            for name, kern in (("upsampled_nll_fwd", "K5"), ("upsampled_nll_bwd", "K6 dense")):
-                plain = t[f"{kern.split()[0]} plain"]
-                report[name] = {"ms": t[kern], "plain_ms": plain, "library_ms": None, **b[kern],
-                                "share": b[kern]["bound_ms"] / t[kern],
-                                "design": "one block per (image, coarse band or row, tile of "
-                                          "coarse columns), the band in shared memory"}
-            report["upsampled_nll_bwd"]["sparse_ms"] = t["K6 sparse"]
+            report = _loss_rows(t, b)
+            for row in report.values():
+                row["design"] = ("one block per (image, coarse band or row, tile of coarse "
+                                 "columns), the band in shared memory")
     for name in report:  # F.interpolate + F.cross_entropy: two calls
         log(f"[loss] {name}: no one library call computes it")
     return report
@@ -1962,28 +2008,6 @@ def ab(parent: str, order=("parent", "tree", "tree", "parent")) -> None:
                        check=True, timeout=900)
 
 
-def _read_png(path: str) -> np.ndarray:
-    """The (H, W) palette indices of a PNG the evaluator wrote, decoded with
-    the standard library: 8-bit colour type 3, 256 palette entries, filter-0
-    scanlines."""
-    data = open(path, "rb").read()
-    if data[:8] != b"\x89PNG\r\n\x1a\n":
-        raise AssertionError(f"{path} is not a PNG")
-    chunks, pos = {}, 8
-    while pos < len(data):
-        n, tag = struct.unpack(">I4s", data[pos:pos + 8])
-        chunks[tag] = chunks.get(tag, b"") + data[pos + 8:pos + 8 + n]
-        pos += 12 + n
-    w, h, depth, ctype = struct.unpack(">IIBB", chunks[b"IHDR"][:10])
-    if (depth, ctype) != (8, 3) or len(chunks[b"PLTE"]) != 768:
-        raise AssertionError(f"{path}: depth {depth}, colour type {ctype}, "
-                             f"{len(chunks[b'PLTE'])} palette bytes")
-    rows = np.frombuffer(zlib.decompress(chunks[b"IDAT"]), np.uint8).reshape(h, w + 1)
-    if (rows[:, 0] != 0).any():
-        raise AssertionError(f"{path}: a scanline filter other than 0")
-    return rows[:, 1:]
-
-
 # evaluation modes: extra cli.evaluate flags, and the forward CCA calls of
 # one image at R=2 at each scale (sliding: per chunk of 8 tiles; whole
 # image; the whole image at 5 scales x 2 flips)
@@ -1996,6 +2020,24 @@ EVAL_MODES = {
 }
 
 
+def _eval_want(mode: str, images: int, model_name: str = "ccnet") -> dict:
+    """The launch counts of evaluating ``images`` of :data:`EVAL_HW` in one
+    of :data:`EVAL_MODES` (CCNet: its attention kernels; the other heads
+    launch none)."""
+    from ccnet_tpu_torch.evaluation import compute_tiles
+
+    want = {n: 0 for n in _counts()}
+    for scale, n in EVAL_MODES[mode][1].items():
+        n *= model_name == "ccnet"
+        if mode.startswith("sliding"):  # chunks of 8 tiles
+            hw, n = (CROP, CROP), n * -(-len(compute_tiles(EVAL_HW, (CROP, CROP))) // 8)
+        else:  # predict_multiscale's round(H * s)
+            hw = tuple(int(round(x * scale)) for x in EVAL_HW)
+        for name, c in _want(hw, images * n).items():
+            want[name] += c
+    return want
+
+
 def phase_main_path(pth: str, mode: str, model_name: str = "ccnet") -> dict:
     """``cli.evaluate.main --model model_name`` on the synthetic 1024×2048
     set in one of :data:`EVAL_MODES`: meanIU, the confusion sum, launch
@@ -2003,19 +2045,11 @@ def phase_main_path(pth: str, mode: str, model_name: str = "ccnet") -> dict:
     PNGs, s/img, peak memory."""
     from ccnet_tpu_torch.cli.evaluate import main
     from ccnet_tpu_torch.data import SyntheticDataset
-    from ccnet_tpu_torch.evaluation import compute_tiles
+    from ccnet_tpu_torch.data.palette import read_png
 
-    flags, calls = EVAL_MODES[mode]
+    flags, _ = EVAL_MODES[mode]
     ds = SyntheticDataset(n=2, hw=EVAL_HW, num_classes=19)
-    want = {n: 0 for n in _counts()}
-    for scale, n in calls.items():
-        n *= model_name == "ccnet"
-        if mode.startswith("sliding"):  # chunks of 8 tiles
-            hw, n = (CROP, CROP), n * -(-len(compute_tiles(EVAL_HW, (CROP, CROP))) // 8)
-        else:  # predict_multiscale's round(H * s)
-            hw = tuple(int(round(x * scale)) for x in EVAL_HW)
-        for name, c in _want(hw, len(ds) * n).items():
-            want[name] += c
+    want = _eval_want(mode, len(ds), model_name)
     with tempfile.TemporaryDirectory() as out_dir:
         _reset_counts()
         torch.cuda.reset_peak_memory_stats()
@@ -2038,11 +2072,11 @@ def phase_main_path(pth: str, mode: str, model_name: str = "ccnet") -> dict:
         pngs = ""
         if "--save-preds" in flags:
             for i in range(len(ds)):
-                pred = _read_png(os.path.join(out_dir, f"{ds.name(i)}.png"))
-                if pred.shape != EVAL_HW or pred.max() >= 19:
+                pred, pal = read_png(os.path.join(out_dir, f"{ds.name(i)}.png"), 3)
+                if pred.shape != EVAL_HW or pred.max() >= 19 or pal.size != 768:
                     raise AssertionError(f"prediction PNG {i}: shape {pred.shape}, "
-                                         f"max index {pred.max()}")
-            pngs = (f"; {len(ds)} prediction PNGs written, decoded with zlib: "
+                                         f"max index {pred.max()}, {pal.size} palette bytes")
+            pngs = (f"; {len(ds)} prediction PNGs written, decoded with read_png: "
                     f"{EVAL_HW[0]}x{EVAL_HW[1]}, indices < 19")
     secs, wall = result["batch_seconds"], result["wall_seconds"]
     log(f"[{mode}] {model_name} R{DEPTH}{' R=2' if model_name == 'ccnet' else ''} bf16 "
@@ -2052,6 +2086,385 @@ def phase_main_path(pth: str, mode: str, model_name: str = "ccnet") -> dict:
         f"median {np.median(wall):.4f} s/img ({' '.join(f'{v:.4f}' for v in wall)}); peak "
         f"memory {peak / 2**30:.2f} GiB{pngs}")
     return launches
+
+
+# ----------------------------------------------------------------------------
+# The rest of the single-card surface: VOC, test-set prediction, --restore-dir,
+# the native augmenter, remat and the profiler.
+VOC_LOSS = (8, 41, 41, 21, 8)  # B, h, w, C, r: the VOC recipe's logits, 41² -> 321²
+VOC_STEPS, VOC_BATCH, VOC_CROP, VOC_CLASSES, VOC_BUCKET = 300, 8, 321, 21, 128
+VOC_MIN_MIOU = 0.5  # the held-out bar of scripts/e2e_voc_synthetic.py:32
+# 21 well-separated colours, as scripts/e2e_voc_synthetic.py:38-42 draws them
+VOC_COLORS = np.random.RandomState(42).permutation(
+    np.stack(np.meshgrid([40, 120, 200], [40, 120, 200], [40, 120, 200]), -1)
+    .reshape(-1, 3).astype(np.float64))[:21] + np.arange(21)[:, None] * 0.7
+NATIVE_STEPS = 4
+REMAT_MODES = ("none", "blocks", "conv12")
+REMAT_LOSS_RTOL = 1e-2
+# ||grads (mode) - grads (none)|| / ||grads (none)|| of one step, per group: the
+# same kernels on the same activations, recomputed; a dropped or doubled
+# grad of a remat'd block is off by O(1)
+REMAT_GRAD_RTOL = 1e-2
+REMAT_STATS_RTOL = 1e-2  # ||Δ stats (mode) - Δ stats (none)|| / ||Δ stats (none)|| of one step
+PROFILE_STEPS, PROFILE_RANGE, PROFILE_BATCH = 3, (1, 2), 2
+
+
+def _peak_reset() -> int:
+    """Reset the peak-memory counter; the bytes allocated now."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def _seconds(fn) -> float:
+    """One ``fn()`` in CUDA-event seconds."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / 1e3
+
+
+def phase_voc_loss_kernels() -> dict:
+    """K5/K6 at the VOC recipe's shape (21 classes: the kernels' class bound
+    32, where the Cityscapes shapes take 20) against the materialised
+    upsample + NLL and its autograd, int32 and uint8 labels, g dense, sparse
+    and zero; then their times and bounds beside the 769² rows'."""
+    errs = {}
+    for live in (1.0, SPARSE_G, 0.0):
+        for name, e in _check_loss_case(VOC_LOSS, live).items():
+            errs[name] = max(errs.get(name, 0.0), e)
+    rows = _loss_rows(*_loss_shape_times("VOC 321²", VOC_LOSS))
+    rows["upsampled_nll_fwd"]["max_abs_err"] = errs["K5"]
+    rows["upsampled_nll_bwd"]["max_abs_err"] = errs["K6"]
+    return rows
+
+
+class MemoryVOC:
+    """Raw VOC samples in memory, in ``VOCDataset``'s layouts: ``"float32"``
+    (f32 image, int32 label) or ``"uint8"``."""
+
+    def __init__(self, items, raw_dtype: str = "float32"):
+        self.items, self.raw_dtype = items, raw_dtype
+
+    def __len__(self):
+        return len(self.items)
+
+    def name(self, index: int) -> str:
+        return self.items[index][2]
+
+    def __getitem__(self, index: int):
+        image, label, name = self.items[index]
+        if self.raw_dtype == "uint8":
+            return image, label, name
+        return image.astype(np.float32), label.astype(np.int32), name
+
+
+def voc_synthetic_tree(n_train: int = 8, n_val: int = 2) -> dict:
+    """``scripts/e2e_voc_synthetic.py``'s tree (``:38-68``) in memory, without
+    its JPEG round trip: images of 280–460 × 320–500 whose 64-pixel blocks
+    carry one of 21 classes as a colour, plus noise; ``{"train": [(image
+    uint8, label uint8, name)], "val": [...]}``."""
+    tree = {}
+    for split, n, seed0 in (("train", n_train, 0), ("val", n_val, 1000)):
+        tree[split] = []
+        for i in range(n):
+            rng = np.random.RandomState(seed0 + i)
+            h, w = int(rng.randint(280, 460)), int(rng.randint(320, 500))
+            blocks = rng.randint(0, VOC_CLASSES, (h // 64 + 1, w // 64 + 1))
+            lbl = np.kron(blocks, np.ones((64, 64), np.int64))[:h, :w]
+            img = np.clip(VOC_COLORS[lbl] + rng.randn(h, w, 3) * 5.0, 0, 255)
+            tree[split].append((img.astype(np.uint8), lbl.astype(np.uint8), f"{split}_{i:04d}"))
+    return tree
+
+
+def _voc_eval(pth: str, val, impl: str = "auto") -> dict:
+    """The exported ``.pth`` through the bucketed ``Evaluator`` (tile
+    VOC_CROP, bucket VOC_BUCKET, the VOC mean) on the held-out images."""
+    from ccnet_tpu_torch.data.voc import VOC_MEAN
+    from ccnet_tpu_torch.evaluation import Evaluator
+    from ccnet_tpu_torch.models import build_model
+    from ccnet_tpu_torch.utils import load_pth
+
+    model = build_model("ccnet", num_classes=VOC_CLASSES, recurrence=2, depth=DEPTH,
+                        dtype=torch.bfloat16, impl=impl, device="cuda")
+    load_pth(pth, model, strict=True)
+    ev = Evaluator(lambda x: model(x)["main"], num_classes=VOC_CLASSES,
+                   tile_hw=(VOC_CROP, VOC_CROP), mean=VOC_MEAN, bucket=VOC_BUCKET, device="cuda")
+    loader = [(img[None], lbl.astype(np.int32)[None], [name]) for img, lbl, name in val]
+    result = ev.run(loader)
+    del model, ev
+    torch.cuda.empty_cache()
+    return result
+
+
+def _voc_train_plain(tree, snap: str) -> float:
+    """The VOC recipe of :func:`phase_voc_e2e` on the plain route
+    (``impl="torch"``: no hand-written kernel), through the CLI's wiring;
+    returns the held-out meanIU."""
+    from ccnet_tpu_torch.cli.train import voc_dataset
+    from ccnet_tpu_torch.data import DataLoader
+    from ccnet_tpu_torch.data.voc import VOC_MEAN
+    from ccnet_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    cfg = TrainConfig(num_classes=VOC_CLASSES, depth=DEPTH, input_size=(VOC_CROP, VOC_CROP),
+                      batch_size=VOC_BATCH, learning_rate=5e-3, num_steps=VOC_STEPS,
+                      save_every=VOC_STEPS, snapshot_dir=snap, seed=304,
+                      augment_backend="precropped", mean=VOC_MEAN, impl="torch", device="cuda")
+    ds = voc_dataset(MemoryVOC(tree["train"]), (VOC_CROP, VOC_CROP), seed=304)
+    Trainer(cfg).run(DataLoader(ds, VOC_BATCH, shuffle=True, seed=304))
+    return _voc_eval(os.path.join(snap, f"CS_scenes_{VOC_STEPS}.pth"), tree["val"],
+                     impl="torch")["meanIU"]
+
+
+def phase_voc_e2e(tmp: str) -> dict:
+    """``scripts/e2e_voc_synthetic.py`` on the card: ``cli.train --dataset
+    voc`` (``VOCDataset`` → ``CachedDataset`` → ``AugmentingDataset``, given
+    the in-memory tree) trains CCNet R101 R=2 bf16 from its seeded init,
+    batch VOC_BATCH of VOC_CROP², VOC_STEPS steps, lr 5e-3, no OHEM; the
+    exported ``.pth`` goes through the bucketed ``Evaluator`` on the 2
+    held-out images, which must score meanIU > VOC_MIN_MIOU. If they do not,
+    the same recipe runs on the plain route, and both numbers are raised.
+    Returns the training's launch counts."""
+    from ccnet_tpu_torch.cli.train import main
+
+    tree = voc_synthetic_tree()
+    snap = os.path.join(tmp, "voc")
+    _reset_counts()
+    base = _peak_reset()
+    t0 = time.perf_counter()
+    result = main(["--dataset", "voc", "--num-classes", str(VOC_CLASSES), "--depth", str(DEPTH),
+                   "--batch-size", str(VOC_BATCH), "--input-size", f"{VOC_CROP},{VOC_CROP}",
+                   "--num-steps", str(VOC_STEPS), "--save-pred-every", str(VOC_STEPS),
+                   "--learning-rate", "5e-3", "--ohem", "0", "--random-seed", "304",
+                   "--snapshot-dir", snap, "--device", "cuda"], dataset=MemoryVOC(tree["train"]))
+    train_s = time.perf_counter() - t0
+    launches, peak = _counts(), torch.cuda.max_memory_allocated() - base
+    losses = result["losses"]
+    if len(losses) != VOC_STEPS or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"VOC train losses {losses}")
+    # R=2 attention calls forward and backward per step, the NLL of both heads
+    want = _want((VOC_CROP, VOC_CROP), 2 * VOC_STEPS, 2 * VOC_STEPS, 2 * VOC_STEPS)
+    if launches != want:
+        raise AssertionError(f"VOC training: expected launches {want}, got {launches}")
+    _reset_counts()
+    ev = _voc_eval(os.path.join(snap, f"CS_scenes_{VOC_STEPS}.pth"), tree["val"])
+    eval_launches = {n: c for n, c in _counts().items() if c}
+    dev, wall = result["step_seconds"][1:], result["wall_seconds"][1:]
+    tag = (f"cli.train --dataset voc CCNet R{DEPTH} R=2 bf16 bs {VOC_BATCH} {VOC_CROP}x{VOC_CROP}"
+           f", {VOC_STEPS} steps, lr 5e-3, no OHEM")
+    log(f"[voc] {tag}: losses first {losses[0]:.4f}, step 50 {losses[min(49, len(losses) - 1)]:.4f}"
+        f", last {losses[-1]:.4f}; launches {launches}")
+    log(f"[voc] {tag}, steps 2-{VOC_STEPS}: {np.mean(dev):.4f} s/step on the card (CUDA "
+        f"events; median {np.median(dev):.4f}), host wall {np.mean(wall):.4f} s/step (median "
+        f"{np.median(wall):.4f}), {train_s:.1f} s in all; peak memory {peak / 2**30:.2f} GiB")
+    secs = ev["batch_seconds"]
+    log(f"[voc] held-out meanIU {ev['meanIU']:.4f} (bar {VOC_MIN_MIOU}) on {len(tree['val'])} "
+        f"images, bucket {VOC_BUCKET}, tile {VOC_CROP}: s/img on the card "
+        + " ".join(f"{v:.4f}" for v in secs) + f"; evaluator launches {eval_launches}")
+    if not ev["meanIU"] > VOC_MIN_MIOU:
+        plain = _voc_train_plain(tree, os.path.join(tmp, "voc_plain"))
+        raise AssertionError(f"VOC e2e: held-out meanIU {ev['meanIU']:.4f} <= {VOC_MIN_MIOU} "
+                             f"on the kernel route; the plain route's {plain:.4f}")
+    return launches
+
+
+def phase_predict(pth: str, tmp: str) -> dict:
+    """``cli.predict.main`` on 2 synthetic :data:`EVAL_HW` images with the
+    769² training's ``.pth``, sliding (K1/K2) and ``--whole 1`` (K7a): the
+    labelId PNGs, decoded with the standard library, equal
+    ``trainid_to_labelid`` of ``Evaluator.predict_batch`` on the same
+    weights, and the launch counts are the evaluation's. Returns the
+    launches of both runs, summed."""
+    from ccnet_tpu_torch.cli.predict import main
+    from ccnet_tpu_torch.data import SyntheticDataset, trainid_to_labelid
+    from ccnet_tpu_torch.data.palette import read_png
+    from ccnet_tpu_torch.evaluation import Evaluator
+    from ccnet_tpu_torch.models import build_model
+    from ccnet_tpu_torch.utils import load_pth
+
+    ds = SyntheticDataset(n=2, hw=EVAL_HW, num_classes=19)
+    model = build_model("ccnet", num_classes=19, recurrence=2, depth=DEPTH,
+                        dtype=torch.bfloat16, device="cuda")
+    load_pth(pth, model, strict=True)
+    total = {n: 0 for n in _counts()}
+    for mode, flags in (("sliding", []), ("whole", ["--whole", "1"])):
+        out = os.path.join(tmp, f"predict_{mode}")
+        _reset_counts()
+        result = main(["--restore-from", pth, "--depth", str(DEPTH), "--input-size",
+                       f"{CROP},{CROP}", "--output-dir", out, "--device", "cuda"] + flags,
+                      dataset=ds)
+        launches = _counts()
+        want = _eval_want(mode, len(ds))
+        if launches != want:
+            raise AssertionError(f"predict {mode}: expected launches {want}, got {launches}")
+        ev = Evaluator(lambda x: model(x)["main"], num_classes=19, tile_hw=(CROP, CROP),
+                       whole=mode == "whole", device="cuda")
+        for i, path in enumerate(result["paths"]):
+            got = read_png(path, 0)[0]
+            want_png = trainid_to_labelid(ev.predict_batch(ds[i][0][None])[0])
+            if got.shape != EVAL_HW or not np.array_equal(got, want_png):
+                raise AssertionError(f"predict {mode}: {path} differs from the evaluator's "
+                                     f"labelIds on {int((got != want_png).sum())} pixels")
+        for name, c in launches.items():
+            total[name] += c
+        secs = result["seconds"]
+        log(f"[predict] cli.predict {' '.join(flags) or 'sliding'} R{DEPTH} R=2 bf16, 2 "
+            f"synthetic {EVAL_HW[0]}x{EVAL_HW[1]} images: labelId PNGs (stdlib-decoded) equal "
+            f"the evaluator's mapped argmax; launches {launches}; host s/img "
+            + " ".join(f"{v:.4f}" for v in secs) + " (predict, copy back and PNG)")
+    del model
+    torch.cuda.empty_cache()
+    return total
+
+
+def phase_restore_dir(snap_dir: str, steps: int) -> None:
+    """``cli.evaluate --restore-dir`` on the 769² training's full-state
+    snapshots gives, exactly, the confusion matrix of ``--restore-from``
+    the ``.pth`` exported at the same step (sliding, synthetic set)."""
+    from ccnet_tpu_torch.cli.evaluate import main
+
+    common = ["--synthetic", "--synthetic-size", f"{EVAL_HW[0]},{EVAL_HW[1]}", "--depth",
+              str(DEPTH), "--input-size", f"{CROP},{CROP}", "--device", "cuda", "--save-preds", "0"]
+    with tempfile.TemporaryDirectory() as out:
+        by_dir = main(common + ["--restore-dir", snap_dir, "--output-dir", out])
+        by_pth = main(common + ["--restore-from", os.path.join(snap_dir, f"CS_scenes_{steps}.pth"),
+                                "--output-dir", out])
+    a, b = np.asarray(by_dir["confusion"]), np.asarray(by_pth["confusion"])
+    if not np.array_equal(a, b):
+        raise AssertionError(f"--restore-dir and --restore-from disagree on {int((a != b).sum())} "
+                             f"confusion entries")
+    log(f"[restore-dir] cli.evaluate --restore-dir {os.path.basename(snap_dir)} (step {steps}) = "
+        f"--restore-from CS_scenes_{steps}.pth: the same confusion matrix (sum {int(a.sum())}), "
+        f"meanIU {by_dir['meanIU']:.6f}")
+
+
+def phase_native_train(pth: str, tmp: str) -> None:
+    """``cli.train --synthetic --augment-backend native`` (the C++/OpenMP
+    library, built with g++ here), NATIVE_STEPS steps at batch TRAIN_BATCH
+    of 769²: launch counts, and the card's s/step beside the host wall
+    s/step, as :func:`train_wall` prints them."""
+    from ccnet_tpu_torch import native
+    from ccnet_tpu_torch.cli.train import main
+
+    t0 = time.perf_counter()
+    native.load()
+    build_s = time.perf_counter() - t0
+    _reset_counts()
+    result = main(["--synthetic", "--synthetic-size", f"{EVAL_HW[0]},{EVAL_HW[1]}", "--device",
+                   "cuda", "--batch-size", str(TRAIN_BATCH), "--input-size", f"{CROP},{CROP}",
+                   "--depth", str(DEPTH), "--ohem", "1", "--num-steps", str(NATIVE_STEPS),
+                   "--save-pred-every", str(NATIVE_STEPS), "--export-pth", "0",
+                   "--augment-backend", "native", "--restore-from", pth, "--snapshot-dir",
+                   os.path.join(tmp, "snapshots_native")])
+    launches = _counts()
+    want = _want((CROP, CROP), 2 * NATIVE_STEPS, 2 * NATIVE_STEPS, 2 * NATIVE_STEPS)
+    if launches != want or not all(math.isfinite(v) for v in result["losses"]):
+        raise AssertionError(f"native: launches {launches} (want {want}), losses "
+                             f"{result['losses']}")
+    dev, wall = result["step_seconds"], result["wall_seconds"]
+    log(f"[native] cli.train --synthetic --augment-backend native bs {TRAIN_BATCH} {CROP}x{CROP},"
+        f" {NATIVE_STEPS} steps (library built/loaded in {build_s:.2f} s): losses "
+        + " ".join(f"{v:.4f}" for v in result["losses"])
+        + f"; host wall median {np.median(wall[1:]):.4f} s/step ("
+        + " ".join(f"{v:.4f}" for v in wall) + f"), card median {np.median(dev[1:]):.4f} s/step ("
+        + " ".join(f"{v:.4f}" for v in dev) + ")")
+
+
+def _grad_groups(model) -> dict:
+    """The model's grads after a step, flattened per group: the remat'd
+    layers 3 and 4 of the trunk, and the rest."""
+    groups = {"layer3": [], "layer4": [], "rest": []}
+    for name, p in model.named_parameters():
+        if p.grad is not None:
+            key = next((g for g in ("layer3", "layer4") if f".{g}." in f".{name}"), "rest")
+            groups[key].append(p.grad.float().flatten())
+    return {g: torch.cat(v) for g, v in groups.items()}
+
+
+def phase_remat(pth: str) -> None:
+    """Two OHEM train steps of CCNet R101 R=2 bf16 at batch TRAIN_BATCH of
+    769² from the same state for each mode of REMAT_MODES. Against ``none``:
+    the first step's grads within REMAT_GRAD_RTOL per group (layers 3 and 4,
+    whose backward recomputes, and the rest), the second step's loss, which
+    the first step's update feeds, within REMAT_LOSS_RTOL, and the BN running
+    stats' update within REMAT_STATS_RTOL (a recompute that updated them
+    again would move them about twice as far); ``blocks`` peaks below
+    ``none``. Prints each mode's peak memory (less the model and its state)
+    and the second step's time."""
+    from ccnet_tpu_torch.losses import build_criterion
+    from ccnet_tpu_torch.models import build_model
+    from ccnet_tpu_torch.train import create_train_state, make_train_step
+    from ccnet_tpu_torch.utils import load_pth
+
+    x, y = _train_batch(3, TRAIN_BATCH, (CROP, CROP))
+    runs = {}
+    for mode in REMAT_MODES:
+        model = build_model("ccnet", num_classes=19, recurrence=2, depth=DEPTH,
+                            dtype=torch.bfloat16, drop_rate=0.0, device="cuda",
+                            remat={"none": False, "blocks": True}.get(mode, mode))
+        load_pth(pth, model, strict=True)
+        before = torch.cat([b.flatten() for n, b in model.named_buffers()
+                            if n.endswith(("running_mean", "running_var"))]).clone()
+        state = create_train_state(model)
+        step = make_train_step(build_criterion(ohem=True))
+        base = _peak_reset()
+        loss = step(state, x, y)["loss"].item()
+        peak = torch.cuda.max_memory_allocated() - base
+        delta = torch.cat([b.flatten() for n, b in model.named_buffers()
+                           if n.endswith(("running_mean", "running_var"))]) - before
+        grads = _grad_groups(model)
+        second = {}
+        seconds = _seconds(lambda: second.update(step(state, x, y)))
+        runs[mode] = {"loss": loss, "loss2": second["loss"].item(), "delta": delta,
+                      "grads": grads, "peak": peak, "s": seconds}
+        del model, state, step
+        torch.cuda.empty_cache()
+    plain = runs["none"]
+    for mode, r in runs.items():
+        r["loss_rel"] = max(abs(r[k] - plain[k]) / abs(plain[k]) for k in ("loss", "loss2"))
+        r["stats_rel"] = ((r["delta"] - plain["delta"]).norm() / plain["delta"].norm()).item()
+        r["grad_rel"] = {g: ((r["grads"][g] - v).norm() / v.norm()).item()
+                         for g, v in plain["grads"].items()}
+    log(f"[remat] CCNet R{DEPTH} R=2 bf16 OHEM bs {TRAIN_BATCH} {CROP}x{CROP}, two steps per mode: "
+        + "; ".join(f"{m} loss {r['loss']:.6f} then {r['loss2']:.6f} (rel {r['loss_rel']:.2e}, tol "
+                    f"{REMAT_LOSS_RTOL:g}), first step's grads rel "
+                    + " ".join(f"{g}={e:.2e}" for g, e in r["grad_rel"].items())
+                    + f" (tol {REMAT_GRAD_RTOL:g}), BN stats update rel {r['stats_rel']:.2e} (tol "
+                    f"{REMAT_STATS_RTOL:g}), peak memory {r['peak'] / 2**30:.2f} GiB, second step "
+                    f"{r['s']:.4f} s" for m, r in runs.items()))
+    if not all(r["loss_rel"] <= REMAT_LOSS_RTOL and r["stats_rel"] <= REMAT_STATS_RTOL
+               and max(r["grad_rel"].values()) <= REMAT_GRAD_RTOL for r in runs.values()):
+        raise AssertionError("remat: a mode's losses, grads or BN stats disagree with no remat")
+    if not all(v.norm().item() > 0 for v in plain["grads"].values()):
+        raise AssertionError("remat: a group of no-remat grads is zero")
+    if not runs["blocks"]["peak"] < plain["peak"]:
+        raise AssertionError("remat: blocks did not lower the peak memory")
+
+
+def phase_profiler(pth: str, tmp: str) -> None:
+    """``cli.train --profile-steps 1,2``, PROFILE_STEPS steps at batch
+    PROFILE_BATCH of 769²: the chrome trace of step 1 is written and names
+    the attention's forward kernels (K1/K2, ``cca_fwd_*``)."""
+    from ccnet_tpu_torch.cli.train import main
+
+    snap = os.path.join(tmp, "snapshots_profile")
+    main(["--synthetic", "--synthetic-size", f"{EVAL_HW[0]},{EVAL_HW[1]}", "--device", "cuda",
+          "--batch-size", str(PROFILE_BATCH), "--input-size", f"{CROP},{CROP}", "--depth",
+          str(DEPTH), "--num-steps", str(PROFILE_STEPS), "--save-pred-every",
+          str(PROFILE_STEPS), "--export-pth", "0", "--restore-from", pth, "--snapshot-dir", snap,
+          "--profile-steps", ",".join(map(str, PROFILE_RANGE))])
+    path = os.path.join(snap, "profile", "trace_%d_%d.json" % PROFILE_RANGE)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    cca = sorted({e["name"][:80] for e in kernels if "cca_fwd" in e["name"]})
+    if not cca:
+        raise AssertionError(f"{path}: no cca_fwd kernel among {len(kernels)} kernel events")
+    log(f"[profiler] cli.train --profile-steps {PROFILE_RANGE[0]},{PROFILE_RANGE[1]}: {path} "
+        f"({os.path.getsize(path) / 1e6:.1f} MB), {len(kernels)} kernel events, "
+        f"{sum('cca_fwd' in e['name'] for e in kernels)} of the attention's forward: {cca}")
 
 
 def main(argv=None) -> None:
@@ -2078,11 +2491,13 @@ def main(argv=None) -> None:
     report.update(phase_probes())
     probe_launches = phase_probe_cli()
     with tempfile.TemporaryDirectory() as tmp:
-        pth = os.path.join(tmp, "ccnet_r101_random.pth")
+        pth = ccnet_pth = os.path.join(tmp, "ccnet_r101_random.pth")
         phase_model(pth)
         phase_train_step(pth, TRAIN_BATCH, (CROP, CROP), profile=args.profile)
-        launches, trained = phase_train_main_path(pth, os.path.join(tmp, "snapshots"),
-                                                  TRAIN_BATCH, (CROP, CROP), TRAIN_STEPS)
+        snap_769 = os.path.join(tmp, "snapshots")
+        launches, trained = phase_train_main_path(pth, snap_769, TRAIN_BATCH, (CROP, CROP),
+                                                  TRAIN_STEPS)
+        trained_769 = trained
         phase_train_step(pth, FULL_FRAME_BATCH, FULL_FRAME)
         full_frame, _ = phase_train_main_path(pth, os.path.join(tmp, "snapshots_full"),
                                               FULL_FRAME_BATCH, FULL_FRAME, FULL_FRAME_STEPS)
@@ -2099,6 +2514,14 @@ def main(argv=None) -> None:
                                                   name)
             heads.append(head)
             phase_main_path(trained, "sliding-png", name)
+        # the rest of the single-card surface
+        voc_loss = phase_voc_loss_kernels()
+        voc = phase_voc_e2e(tmp)
+        predict = phase_predict(trained_769, tmp)
+        phase_restore_dir(snap_769, TRAIN_STEPS)
+        phase_native_train(ccnet_pth, tmp)
+        phase_remat(ccnet_pth)
+        phase_profiler(ccnet_pth, tmp)
     # each kernel's launches in the main paths that run it: K1–K6 in the 769²
     # cli.train run (K1/K2 plus the sliding evaluation's, K5/K6 plus
     # full-frame, PSPNet's and DeepLabv3's cli.train), K7a in the --whole and
@@ -2112,6 +2535,10 @@ def main(argv=None) -> None:
         launches[name] = whole[name] + msflip[name] + full_frame[name]
     for name in ("cca_line_bwd", "cca_line_bwd_tc"):
         launches[name] = full_frame[name]
+    # the VOC training (K1–K6 at 41x41, K5/K6 at 21 classes) and cli.predict
+    # (K1/K2 sliding, K7a with --whole 1)
+    for name in voc:
+        launches[name] += voc[name] + predict[name]
     launches.update(probe_launches)
     kernels = [{"name": name, "route": "cuda", "source": f"ccnet_tpu_torch/csrc/{source}",
                 "replaces": replaces, "launches": launches[name],
@@ -2124,6 +2551,11 @@ def main(argv=None) -> None:
     for k in kernels:  # K1–K4, K7a/K7b: how many of the path's launches took the tensor cores
         if f"{k['name']}_tc" in launches:
             k["launches_tensor_core"] = launches[f"{k['name']}_tc"]
+        if k["name"] in voc_loss:  # K5/K6 at the VOC shape (21 classes), beside the 769² row
+            r = voc_loss[k["name"]]
+            k["voc_321"] = {"shape": list(VOC_LOSS), "launches": voc[k["name"]],
+                            **{key: r[key] for key in ("max_abs_err", "ms", "plain_ms",
+                                                       "bound_ms", "bound_by")}}
     log("[summary] kernel: ms / bound ms (share of bound) / plain ms / library ms")
     for k in kernels:
         lib = "none" if k["library_ms"] is None else f"{k['library_ms']:.4f}"
@@ -2132,6 +2564,11 @@ def main(argv=None) -> None:
             f"({k['bound_ms'] / k['ms']:.1%}) / {k['plain_ms']:.4f} / {lib}; "
             f"{k['launches']} launches on its path; bound from {r['bound_bytes'] / 1e6:.2f} MB "
             f"(the port moves {r['port_bytes'] / 1e6:.2f} MB), {r['bound_flops'] / 1e9:.3f} GFLOP")
+        if "voc_321" in k:
+            v = k["voc_321"]
+            log(f"[summary] {k['name']} at {tuple(VOC_LOSS)} (B, h, w, C, r): {v['ms']:.4f} / "
+                f"{v['bound_ms']:.4f} by {v['bound_by']} ({v['bound_ms'] / v['ms']:.1%}) / "
+                f"{v['plain_ms']:.4f} / none; {v['launches']} launches in the VOC training")
     log(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -9,6 +9,8 @@ port's model side.
 
 from __future__ import annotations
 
+import contextlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -85,3 +87,16 @@ def nchw(x: np.ndarray) -> torch.Tensor:
 
 def nhwc(t: torch.Tensor) -> np.ndarray:
     return t.detach().permute(0, 2, 3, 1).cpu().numpy()
+
+
+@contextlib.contextmanager
+def torch_threads(n: int):
+    """torch's intra-op threads set to ``n`` inside, restored after: the
+    suite runs several workers on one machine's cores, and an oversubscribed
+    OpenMP pool slows every worker."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(n)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(before)

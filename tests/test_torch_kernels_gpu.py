@@ -623,3 +623,36 @@ def test_probe_scale_at_unaligned_offset(cuda, offset, shape):
     got = P.scale_ragged(x)
     assert P.LAUNCHES["scale_ragged"] == before + 1
     assert got.shape == x.shape and torch.equal(got, P.scale_ragged_plain(x))
+
+
+# the VOC recipe's loss: 21 classes at 41x41 -> 321x321 (r = 8), the first
+# class count past 20 (the kernels' class bound 32), and C = 32 itself
+VOC_LOSS_SHAPES = [(8, 41, 41, 21, 8), (2, 5, 7, 21, 3), (1, 9, 9, 32, 4)]
+
+
+@pytest.mark.parametrize("label_dtype", ["int32", "uint8"])
+@pytest.mark.parametrize("shape", VOC_LOSS_SHAPES)
+def test_voc_loss_kernels_match_plain(cuda, shape, label_dtype):
+    logits, labels, g = _loss_case(shape, label_dtype, cuda, seed=21)
+    before = dict(U.LAUNCHES)
+    nll = U.upsampled_nll_fwd(logits, labels)
+    dl = U.upsampled_nll_bwd(logits, labels, g)
+    assert U.LAUNCHES == {n: c + 1 for n, c in before.items()}
+    want_nll = U.upsampled_nll_reference(logits, labels)
+    want_dl = U.upsampled_nll_bwd_plain(logits, labels, g)
+    assert (nll - want_nll).abs().max().item() <= 1e-5
+    assert (dl - want_dl).abs().max().item() <= 1e-4 * want_dl.abs().max().item()
+
+
+def test_grey_png_round_trip_of_card_predictions(cuda, tmp_path):
+    """labelIds of an argmax computed on the card, written as a greyscale
+    PNG, read back equal."""
+    from ccnet_tpu_torch.data import trainid_to_labelid
+    from ccnet_tpu_torch.data.palette import read_png, save_grey_png
+
+    torch.manual_seed(0)
+    logits = torch.randn(1, 19, 97, 129, device=cuda)
+    pred = logits.argmax(1)[0].to(torch.uint8).cpu().numpy()
+    path = str(tmp_path / "pred.png")
+    save_grey_png(path, trainid_to_labelid(pred))
+    np.testing.assert_array_equal(read_png(path, 0)[0], trainid_to_labelid(pred))

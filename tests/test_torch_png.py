@@ -1,5 +1,6 @@
-"""The port's prediction PNG writer (standard library only) vs the JAX
-package's PIL writer: PIL reads both back with equal pixels and palettes."""
+"""The port's prediction PNG writers (standard library only) vs the JAX
+package's PIL writer: PIL reads both back with equal pixels and palettes;
+the port's own reader agrees with PIL on the writers' files."""
 
 import numpy as np
 import pytest
@@ -7,7 +8,8 @@ from PIL import Image
 
 from ccnet_tpu.data.palette import save_indexed_png as jax_save_indexed_png
 
-from ccnet_tpu_torch.data.palette import cityscapes_palette, save_indexed_png
+from ccnet_tpu_torch.data.palette import (cityscapes_palette, read_png, save_grey_png,
+                                          save_indexed_png)
 
 
 @pytest.mark.parametrize("hw,high", [((1, 1), 19), ((3, 5), 19), ((17, 33), 19),
@@ -37,3 +39,25 @@ def test_png_custom_palette_and_int_input(tmp_path):
     assert a.getpalette()[:12] == b.getpalette()[:12] == palette
     with pytest.raises(ValueError):
         save_indexed_png(ours, pred[None])
+
+
+@pytest.mark.parametrize("colour_type,hw", [(0, (1, 1)), (0, (37, 64)), (3, (1, 1)),
+                                            (3, (37, 64))])
+def test_read_png_equals_pil_on_both_writers(tmp_path, colour_type, hw):
+    """``read_png`` gives PIL's pixels (and, for palette PNGs, palette) of
+    what ``save_grey_png`` / ``save_indexed_png`` wrote, and refuses the
+    other colour type."""
+    pred = np.random.RandomState(sum(hw)).randint(0, 256, hw).astype(np.uint8)
+    path = str(tmp_path / "p.png")
+    (save_grey_png if colour_type == 0 else save_indexed_png)(path, pred)
+    pixels, palette = read_png(path, colour_type)
+    pil = Image.open(path)
+    assert pil.mode == ("L" if colour_type == 0 else "P")
+    np.testing.assert_array_equal(pixels, np.asarray(pil))
+    np.testing.assert_array_equal(pixels, pred)
+    if colour_type == 3:
+        assert palette.tolist() == pil.getpalette() == cityscapes_palette()
+    else:
+        assert palette.size == 0
+    with pytest.raises(ValueError):
+        read_png(path, 3 - colour_type)
