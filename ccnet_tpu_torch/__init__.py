@@ -15,7 +15,8 @@ never ``jax``:
 
 Entry points: ``python -m ccnet_tpu_torch.cli.train`` (Cityscapes or VOC),
 ``cli.evaluate``, ``cli.predict`` (test-set submission PNGs) and
-``cli.probe``. Multi-GPU (``parallel/``) is not ported.
+``cli.probe``; over N cards, one process each under torchrun
+(:mod:`ccnet_tpu_torch.parallel`).
 """
 
 __version__ = "0.1.0"

@@ -13,9 +13,20 @@ device the criss-cross attention goes through the hand-written kernels.
 VOC mean to a multiple of ``--bucket`` (default 128), the VOC colormap and
 class names. ``--restore-dir`` loads the latest full-state snapshot
 (``step_*.pt``) that ``cli.train`` writes, in place of a ``.pth``.
+``main(argv, dataset=...)`` scores raw ``(image, label, name)`` samples given
+in memory in place of the files under ``--data-dir``.
 
-Not ported yet (they raise): ``--space`` > 1 and ``--data-parallel`` over
-more than one device.
+Over N cards, one process per card under torchrun::
+
+    python -m torch.distributed.run --standalone --nproc_per_node N \
+        -m ccnet_tpu_torch.cli.evaluate --restore-from ccnet.pth
+
+``--data-parallel 1`` (the default) shards the images over the ranks; the
+confusion matrices are summed once at the end, every rank returns the
+global result, rank 0 writes ``result.txt``. ``--data-parallel 0`` asks for
+one process and exits under torchrun. A single process that sees several
+cards uses one and logs the torchrun line. Not ported (it raises):
+``--space`` > 1.
 """
 
 from __future__ import annotations
@@ -24,7 +35,7 @@ import argparse
 
 import torch
 
-from ccnet_tpu_torch.cli.common import str2bool
+from ccnet_tpu_torch.cli.common import check_data_parallel, note_unused_cards, str2bool
 from ccnet_tpu_torch.data import (
     CITYSCAPES_CLASS_NAMES,
     CITYSCAPES_MEAN_BGR,
@@ -38,8 +49,9 @@ from ccnet_tpu_torch.data import (
 from ccnet_tpu_torch.data.palette import voc_colormap
 from ccnet_tpu_torch.evaluation import Evaluator
 from ccnet_tpu_torch.models import build_model
+from ccnet_tpu_torch.parallel import maybe_initialize_distributed, rank_device
 from ccnet_tpu_torch.train import create_train_state
-from ccnet_tpu_torch.utils import get_logger, load_pth, resolve_device, restore_checkpoint
+from ccnet_tpu_torch.utils import get_logger, load_pth, restore_checkpoint
 
 
 def get_parser():
@@ -72,7 +84,8 @@ def get_parser():
                    help="f32 compute with TF32 off (default: bf16)")
     p.add_argument("--num-workers", type=int, default=4, help="sample decode threads")
     p.add_argument("--data-parallel", type=str2bool, default=True,
-                   help="no-op on one device; multi-GPU is not ported yet")
+                   help="under torchrun, shard the images over the ranks (no-op in one "
+                        "process)")
     p.add_argument("--space", type=int, default=1,
                    help="height sharding of --whole inference (not ported yet)")
     p.add_argument("--synthetic", action="store_true")
@@ -81,16 +94,18 @@ def get_parser():
     return p
 
 
-def main(argv=None):
+def main(argv=None, dataset=None):
+    """Score; ``dataset``: raw ``(image, label, name)`` samples to use in
+    place of ``--synthetic`` or the files under ``--data-dir``."""
     args = get_parser().parse_args(argv)
     logger = get_logger("ccnet_tpu_torch.cli.evaluate")
+    maybe_initialize_distributed(logger, device=args.device)
     if args.space > 1:
         raise NotImplementedError("--space (height-sharded whole-image inference) "
                                   "is not ported yet")
-    device = resolve_device(args.device)
-    if args.data_parallel and device.type == "cuda" and torch.cuda.device_count() > 1:
-        raise NotImplementedError("--data-parallel over more than one GPU is not ported yet; "
-                                  "pass --data-parallel 0 or expose one device")
+    device = rank_device(args.device)
+    check_data_parallel(args.data_parallel)
+    note_unused_cards(logger, device, "ccnet_tpu_torch.cli.evaluate")
     h, w = (int(x) for x in args.input_size.split(","))
     if args.fp32:
         # strict numerics: full-f32 matmuls and convolutions, no TF32
@@ -123,14 +138,14 @@ def main(argv=None):
     def apply_fn(x):
         return model(x)["main"]
 
-    if args.synthetic:
+    if dataset is None and args.synthetic:
         sh, sw = (int(x) for x in args.synthetic_size.split(","))
         dataset = SyntheticDataset(n=2, hw=(sh, sw), num_classes=args.num_classes)
-    elif is_voc:
+    elif dataset is None and is_voc:
         if not args.data_list:
             raise SystemExit("--data-list (VOC id list) is required for --dataset voc")
         dataset = VOCDataset(args.data_dir, args.data_list, raw_dtype="uint8")
-    else:
+    elif dataset is None:
         dataset = CityscapesDataset(args.data_dir, args.data_list, split=args.split,
                                     raw_dtype="uint8")
     loader = DataLoader(dataset, args.batch_size, shuffle=False, num_workers=args.num_workers,

@@ -13,8 +13,9 @@ standard library (no PIL). Inputs are mean-subtracted as in training.
 
 ``main(argv, dataset=...)`` predicts a set of raw ``(image, label, name)``
 samples given in memory in place of the ``--split`` images under
-``--data-dir``. Not ported yet (they raise): ``--space`` > 1 and
-``--data-parallel`` over more than one device.
+``--data-dir``. Under torchrun (one process per card) ``--data-parallel 1``,
+the default, shards the images over the ranks, each writing its own PNGs;
+``--data-parallel 0`` exits there. Not ported (it raises): ``--space`` > 1.
 """
 
 from __future__ import annotations
@@ -26,12 +27,13 @@ import time
 
 import torch
 
-from ccnet_tpu_torch.cli.common import str2bool
+from ccnet_tpu_torch.cli.common import check_data_parallel, note_unused_cards, str2bool
 from ccnet_tpu_torch.data import CityscapesDataset, DataLoader, trainid_to_labelid
 from ccnet_tpu_torch.data.palette import cityscapes_palette, save_grey_png, save_indexed_png
 from ccnet_tpu_torch.evaluation import Evaluator
 from ccnet_tpu_torch.models import build_model
-from ccnet_tpu_torch.utils import get_logger, load_pth, resolve_device
+from ccnet_tpu_torch.parallel import maybe_initialize_distributed, rank_device
+from ccnet_tpu_torch.utils import get_logger, load_pth
 
 
 def get_parser():
@@ -56,7 +58,8 @@ def get_parser():
     p.add_argument("--fp32", type=str2bool, default=False,
                    help="f32 compute with TF32 off (default: bf16)")
     p.add_argument("--data-parallel", type=str2bool, default=True,
-                   help="no-op on one device; multi-GPU is not ported yet")
+                   help="under torchrun, shard the images over the ranks (no-op in one "
+                        "process)")
     p.add_argument("--space", type=int, default=1,
                    help="height sharding of --whole inference (not ported yet)")
     p.add_argument("--device", type=str, default="cuda", help="cuda, cuda:N or cpu")
@@ -65,16 +68,17 @@ def get_parser():
 
 def main(argv=None, dataset=None) -> dict:
     """Write one PNG per image; returns ``{"paths", "seconds"}``: the PNGs in
-    order and each image's host seconds from its prediction to its PNG."""
+    order (over N ranks, this rank's) and each image's host seconds from its
+    prediction to its PNG."""
     args = get_parser().parse_args(argv)
     logger = get_logger("ccnet_tpu_torch.cli.predict")
+    maybe_initialize_distributed(logger, device=args.device)
     if args.space > 1:
         raise NotImplementedError("--space (height-sharded whole-image inference) "
                                   "is not ported yet")
-    device = resolve_device(args.device)
-    if args.data_parallel and device.type == "cuda" and torch.cuda.device_count() > 1:
-        raise NotImplementedError("--data-parallel over more than one GPU is not ported yet; "
-                                  "pass --data-parallel 0 or expose one device")
+    device = rank_device(args.device)
+    check_data_parallel(args.data_parallel)
+    note_unused_cards(logger, device, "ccnet_tpu_torch.cli.predict")
     h, w = (int(x) for x in args.input_size.split(","))
     if args.fp32:
         # strict numerics: full-f32 matmuls and convolutions, no TF32

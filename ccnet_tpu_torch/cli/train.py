@@ -10,9 +10,19 @@ ASPP heads on the same trunk (``--recurrence`` does not apply to them). On a
 CUDA device the criss-cross attention and the upsample+NLL loss, forward
 and backward, go through the hand-written kernels. ``--device`` defaults
 to ``cuda`` and raises without CUDA; ``--fp32 1`` computes in f32 with TF32
-off. ``--batch-size`` is the batch
-of the one process. ``--synthetic`` trains on generated 1024×2048 images
-with the on-device augmentation.
+off. ``--synthetic`` trains on generated 1024×2048 images with the
+on-device augmentation.
+
+Over N cards, one process per card under torchrun (NCCL when every rank
+has a card of its own, gloo when ranks share one or run on the CPU)::
+
+    python -m torch.distributed.run --standalone --nproc_per_node N \
+        -m ccnet_tpu_torch.cli.train --synthetic --ohem 1
+
+``--batch-size`` is the global batch and must divide over the ranks (else
+``SystemExit``); each rank loads its strided share, and a step equals the
+one-process step on the global batch (:mod:`ccnet_tpu_torch.parallel`).
+Rank 0 writes the checkpoints and the ``.pth``.
 
 ``--dataset voc`` reads ``JPEGImages``/``SegmentationClassAug`` with an id
 list (``--data-list``) and augments on the host (:func:`voc_dataset`:
@@ -37,7 +47,7 @@ import argparse
 
 import torch
 
-from ccnet_tpu_torch.cli.common import str2bool
+from ccnet_tpu_torch.cli.common import note_unused_cards, str2bool
 from ccnet_tpu_torch.data import (
     AugmentingDataset,
     CachedDataset,
@@ -48,8 +58,9 @@ from ccnet_tpu_torch.data import (
     VOCDataset,
 )
 from ccnet_tpu_torch.data.voc import VOC_MEAN, VOC_SCALE_MIN, VOC_SCALE_STEPS
+from ccnet_tpu_torch.parallel import maybe_initialize_distributed, rank_device, world
 from ccnet_tpu_torch.train.trainer import TrainConfig, Trainer
-from ccnet_tpu_torch.utils import get_logger, resolve_device
+from ccnet_tpu_torch.utils import get_logger
 
 
 def get_parser():
@@ -130,7 +141,12 @@ def main(argv=None, dataset=None):
     of the files under ``--data-dir`` (VOC: f32/int32, Cityscapes: uint8)."""
     args = get_parser().parse_args(argv)
     logger = get_logger("ccnet_tpu_torch.cli.train")
-    device = resolve_device(args.device)
+    maybe_initialize_distributed(logger, device=args.device)
+    device = rank_device(args.device)
+    ranks = world()[1]
+    if args.batch_size % ranks:
+        raise SystemExit(f"--batch-size {args.batch_size} must divide over {ranks} processes")
+    note_unused_cards(logger, device, "ccnet_tpu_torch.cli.train")
     if args.fp32:
         # strict numerics: full-f32 matmuls and convolutions, no TF32
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -179,7 +195,8 @@ def main(argv=None, dataset=None):
                 dataset, crop_hw=(h, w), mean=tuple(cfg.mean), ignore_label=args.ignore_label,
                 scale=args.random_scale, mirror=args.random_mirror, scale_min=cfg.scale_min,
                 scale_steps=cfg.scale_steps, seed=args.random_seed)
-    loader = DataLoader(dataset, args.batch_size, shuffle=True, seed=args.random_seed,
+    # --batch-size is the global batch: each rank loads its 1/ranks share
+    loader = DataLoader(dataset, args.batch_size // ranks, shuffle=True, seed=args.random_seed,
                         num_workers=args.num_workers)
     trainer = Trainer(cfg)
     result = trainer.run(loader)

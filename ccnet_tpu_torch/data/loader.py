@@ -20,8 +20,10 @@ training and evaluation paths use, with the same seeds and orders:
   :class:`HostToDevice`, its placement on a CUDA card: pinned staging
   buffers and a side stream, the consumer's stream waiting on each copy.
 
-Multi-GPU is not ported: ``process_index``/``process_count`` default to
-0/1 and nothing asks ``torch.distributed``.
+Over N ranks (a live ``torch.distributed`` group, one process per card)
+``process_index``/``process_count`` default to the rank and the world
+size, so each rank loads its strided share of every epoch; the shares of a
+batch, concatenated in rank order, are the global batch.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from typing import Iterator, Optional, Tuple
 import numpy as np
 import torch
 
+from ccnet_tpu_torch.parallel.distributed import world
 from ccnet_tpu_torch.utils.logging import get_logger
 
 logger = get_logger("ccnet_tpu_torch.data")
@@ -279,7 +282,9 @@ class DataLoader:
 
     The epoch's order is ``RandomState(seed + epoch).permutation(n)`` with
     ``shuffle``, else ``0..n-1``, strided by ``process_index`` over
-    ``process_count``; ``drop_last`` drops the short tail batch. A producer
+    ``process_count`` (by default the rank and world size of the live
+    group, 0 and 1 without one); ``batch_size`` is this process's share;
+    ``drop_last`` drops the short tail batch. A producer
     thread submits sample decodes to ``num_workers`` threads up to
     ``decode_ahead`` samples (default ``(prefetch + 1) * batch_size``) past
     the consume point, across batch boundaries, and queues up to
@@ -289,10 +294,13 @@ class DataLoader:
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True, seed: int = 0,
                  num_workers: int = 8, drop_last: bool = True, prefetch: int = 2,
-                 decode_ahead: Optional[int] = None, process_index: int = 0,
-                 process_count: int = 1):
+                 decode_ahead: Optional[int] = None, process_index: Optional[int] = None,
+                 process_count: Optional[int] = None):
         if batch_size < 1:
             raise ValueError(f"batch_size must be >= 1, got {batch_size}")
+        rank, size = world()
+        process_index = rank if process_index is None else process_index
+        process_count = size if process_count is None else process_count
         if not 0 <= process_index < process_count:
             raise ValueError(f"process_index {process_index} not in [0, {process_count})")
         self.dataset = dataset

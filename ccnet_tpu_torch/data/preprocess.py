@@ -34,6 +34,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from ccnet_tpu_torch.parallel.mesh import rank_slice
+
 # reference train.py:30 (BGR order, matches cv2 imread)
 CITYSCAPES_MEAN_BGR = (104.00698793, 116.66876762, 122.67891434)
 
@@ -127,11 +129,17 @@ def device_augment_batch(images: torch.Tensor, labels: torch.Tensor, seed: int, 
                          mean: Tuple[float, float, float] = CITYSCAPES_MEAN_BGR,
                          ignore_label: int = 255, scale_min: float = SCALE_MIN,
                          scale_steps: int = SCALE_STEPS, scale: bool = True,
-                         mirror: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Augment a raw batch on its device with draws seeded from ``(seed, step)``."""
+                         mirror: bool = True, rank: int = 0,
+                         ranks: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Augment a raw batch on its device with draws seeded from ``(seed, step)``.
+
+    ``images`` is rank ``rank``'s share of a global batch over ``ranks``
+    ranks: the draws are made for the global batch and sliced, so each
+    rank's crops are the one-process crops of its samples."""
     gen = torch.Generator().manual_seed((seed * 1000003 + step) % (2 ** 63))
-    draws = draw_augment_params(images.shape[0], tuple(images.shape[1:3]), crop_hw, gen,
-                                scale_min, scale_steps, scale, mirror)
+    draws = draw_augment_params(images.shape[0] * ranks, tuple(images.shape[1:3]), crop_hw,
+                                gen, scale_min, scale_steps, scale, mirror)
+    draws = [rank_slice(d, rank, ranks) for d in draws]
     return augment_batch(images, labels, *draws, crop_hw=crop_hw, mean=mean,
                          ignore_label=ignore_label, scale_min=scale_min, scale=scale)
 

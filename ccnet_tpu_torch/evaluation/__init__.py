@@ -2,6 +2,7 @@ from ccnet_tpu_torch.evaluation.evaluator import Evaluator
 from ccnet_tpu_torch.evaluation.metrics import (
     ConfusionAccumulator,
     confusion_matrix,
+    cross_process_sum,
     iou_from_confusion,
 )
 from ccnet_tpu_torch.evaluation.sliding import (
@@ -14,6 +15,7 @@ from ccnet_tpu_torch.evaluation.sliding import (
 __all__ = [
     "ConfusionAccumulator",
     "confusion_matrix",
+    "cross_process_sum",
     "iou_from_confusion",
     "compute_tiles",
     "predict_sliding",

@@ -9,6 +9,14 @@ and the confusion matrix all run there, under ``torch.inference_mode()``.
 :func:`~ccnet_tpu_torch.data.loader.device_prefetch`, which pads and copies
 batch i+1 while batch i is predicted; predictions come back to the host
 only when PNGs are asked for, and a writer thread encodes them.
+
+Over N ranks each rank predicts the images its loader yields (a strided
+share: :class:`~ccnet_tpu_torch.data.loader.DataLoader` defaults to the
+live group) and writes their PNGs; the confusion matrices are summed over
+the ranks once, after the loop (:func:`~ccnet_tpu_torch.evaluation.metrics.
+cross_process_sum`; no collective mid-loop, where the running meanIU in the
+log is the rank's own), so every rank returns the global result, and rank
+0 alone writes ``result.txt``.
 """
 
 from __future__ import annotations
@@ -27,8 +35,13 @@ import torch
 from ccnet_tpu_torch.data.loader import HostToDevice, device_prefetch
 from ccnet_tpu_torch.data.palette import cityscapes_palette, save_indexed_png
 from ccnet_tpu_torch.data.preprocess import CITYSCAPES_MEAN_BGR
-from ccnet_tpu_torch.evaluation.metrics import ConfusionAccumulator, iou_from_confusion
+from ccnet_tpu_torch.evaluation.metrics import (
+    ConfusionAccumulator,
+    cross_process_sum,
+    iou_from_confusion,
+)
 from ccnet_tpu_torch.evaluation.sliding import predict_multiscale
+from ccnet_tpu_torch.parallel.distributed import is_primary_host
 
 
 def _mark(device: torch.device):
@@ -150,7 +163,7 @@ class Evaluator:
                 t0 = time.perf_counter()
         for w in writes:
             w.result()  # raise a PNG write's error
-        cm = acc.matrix()
+        cm = cross_process_sum(acc.cm).cpu().numpy()
         iu, mean_iu = iou_from_confusion(cm)
         result = {
             "meanIU": mean_iu,
@@ -161,7 +174,7 @@ class Evaluator:
         }
         if self.class_names:
             result["per_class"] = {n: float(x) for n, x in zip(self.class_names, iu)}
-        if output_dir:
+        if output_dir and is_primary_host():
             with open(osp.join(output_dir, "result.txt"), "w") as f:
                 json.dump({"meanIU": result["meanIU"], "IU_array": result["IU_array"]}, f)
         return result

@@ -3,8 +3,8 @@
 Counterpart of :mod:`ccnet_tpu.evaluation.metrics`: the reference's bincount
 trick (``evaluate.py:177-195``) on the device, and the IoU formula
 ``tp / (pos + res − tp)`` with the mean over classes present in the ground
-truth. The accumulator is single-process; summing across processes comes
-with multi-GPU evaluation.
+truth. Over N ranks each rank accumulates the confusion of its own images
+and :func:`cross_process_sum` adds the ranks' matrices once, at the end.
 """
 
 from __future__ import annotations
@@ -13,6 +13,8 @@ from typing import Tuple
 
 import numpy as np
 import torch
+
+from ccnet_tpu_torch.parallel.mesh import all_reduce_sum
 
 
 def confusion_matrix(labels: torch.Tensor, preds: torch.Tensor, num_classes: int,
@@ -40,6 +42,15 @@ def iou_from_confusion(cm) -> Tuple[np.ndarray, float]:
     present = pos > 0
     mean_iu = float(iu[present].mean()) if present.any() else 0.0
     return iu, mean_iu
+
+
+def cross_process_sum(cm: torch.Tensor) -> torch.Tensor:
+    """The (C, C) int64 confusion ``cm`` summed over the ranks of the live
+    group: one ``all_reduce``, which every rank must call; ``cm`` itself in
+    a single process. The counterpart of the JAX package's
+    ``cross_process_sum`` and the reference's one NCCL all-reduce of the
+    evaluation's confusion matrix."""
+    return all_reduce_sum(cm)
 
 
 class ConfusionAccumulator:

@@ -15,6 +15,15 @@ align_corners=True before the pixel loss. The per-pixel NLL routes by
 The JAX package's ``CCNET_TPU_FUSED_NLL`` switch is not carried over.
 ``criterion_ohem_dsn2`` (CE + Lovász-softmax) needs the full-resolution
 softmax anyway, so it keeps the materialised upsample and takes no ``impl``.
+
+Over N ranks (a live process group) ``criterion_dsn`` and
+``criterion_ohem_dsn`` return this rank's share of the loss of the global
+batch: the OHEM threshold is the global one and each masked mean divides
+by the global count (:mod:`~ccnet_tpu_torch.losses.ohem`,
+:func:`~ccnet_tpu_torch.losses.cross_entropy.masked_mean`), so the ranks'
+shares sum to the one-process loss of the global batch. The Lovász term of
+``criterion_ohem_dsn2`` sorts the errors of the whole batch, which no rank
+holds: it raises ``NotImplementedError`` over N ranks.
 """
 
 from __future__ import annotations
@@ -25,7 +34,7 @@ from typing import Callable, Dict
 import torch
 
 from ccnet_tpu_torch.losses.cross_entropy import masked_mean, softmax_cross_entropy_ignore
-from ccnet_tpu_torch.losses.lovasz import lovasz_softmax
+from ccnet_tpu_torch.losses.lovasz import lovasz_softmax, require_one_rank
 from ccnet_tpu_torch.losses.ohem import ohem_keep_mask
 from ccnet_tpu_torch.ops.resize import resize_bilinear_align_corners
 from ccnet_tpu_torch.ops.upsampled_ce import (
@@ -80,7 +89,9 @@ def criterion_ohem_dsn(outputs: Dict[str, torch.Tensor], labels: torch.Tensor,
 
 def criterion_ohem_dsn2(outputs: Dict[str, torch.Tensor], labels: torch.Tensor,
                         ignore_label: int = 255) -> torch.Tensor:
-    """CE(main) + Lovász-softmax(main), on the materialised f32 upsample."""
+    """CE(main) + Lovász-softmax(main), on the materialised f32 upsample.
+    One process only: raises ``NotImplementedError`` over N ranks."""
+    require_one_rank("criterion_ohem_dsn2 (its Lovász-softmax term)")
     up = resize_bilinear_align_corners(outputs["main"], labels.shape[1:])
     loss1 = softmax_cross_entropy_ignore(up, labels, ignore_label)
     loss2 = lovasz_softmax(torch.softmax(up, dim=1), labels, ignore_label)

@@ -3,18 +3,26 @@
 Counterpart of :mod:`ccnet_tpu.losses.cross_entropy`: the mean per-pixel NLL
 over non-ignored pixels, as ``torch.nn.CrossEntropyLoss(ignore_index=255)``
 computes it. Logits are NCHW ``(B, C, H, W)``.
+
+Over N ranks (a live process group) each function returns this rank's
+share of the mean over the global batch: its own sum over the global count
+of selected pixels (summed over the ranks, not differentiated). The shares
+sum to the one-process mean of the global batch, and so do their gradients.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ccnet_tpu_torch.parallel.mesh import all_reduce_sum
+
 
 def masked_mean(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """Mean of ``values`` over ``mask`` (0 if nothing is selected)."""
+    """Mean of ``values`` over ``mask`` (0 if nothing is selected); over N
+    ranks, this rank's share of the global mean."""
     mask = mask.float()
     total = (values * mask).sum()
-    count = mask.sum()
+    count = all_reduce_sum(mask.sum().detach())
     return torch.where(count > 0, total / count.clamp_min(1.0), torch.zeros_like(total))
 
 

@@ -22,12 +22,28 @@ ahead of the tail enter the loss, and the sentinels contribute nothing.
 :func:`flatten_binary_scores` keeps the JAX surface (scores, labels and a
 validity mask). Everything is differentiable in the scores through
 ``torch.sort``'s values.
+
+Over N ranks (a live process group) :func:`lovasz_softmax`,
+:func:`lovasz_hinge` and :func:`lovasz_hinge_flat` raise
+``NotImplementedError``: their sort runs over the pixels of the whole
+batch, which no rank holds. :func:`binary_xloss` is a mean and returns this
+rank's share of the global one.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from ccnet_tpu_torch.parallel.distributed import world
+from ccnet_tpu_torch.parallel.mesh import all_reduce_sum
+
+
+def require_one_rank(what: str) -> None:
+    """Raise ``NotImplementedError`` for ``what`` inside a group of N > 1 ranks."""
+    if world()[1] > 1:
+        raise NotImplementedError(f"{what} over {world()[1]} ranks is not ported: it sorts "
+                                  "the whole batch's pixels; train it in one process")
 
 
 def _lovasz_grad(gt_sorted: torch.Tensor) -> torch.Tensor:
@@ -62,7 +78,9 @@ def lovasz_softmax(probas: torch.Tensor, labels: torch.Tensor, ignore_label: int
                    per_image: bool = False) -> torch.Tensor:
     """Lovász-softmax over present classes.
 
-    probas ``(B, C, H, W)`` softmax probabilities, labels ``(B, H, W)`` int."""
+    probas ``(B, C, H, W)`` softmax probabilities, labels ``(B, H, W)`` int.
+    One process only."""
+    require_one_rank("lovasz_softmax")
     if per_image:
         return torch.stack([
             _lovasz_softmax_flat(*_valid_pixels(p[None], l[None], ignore_label))
@@ -84,7 +102,8 @@ def flatten_binary_scores(scores: torch.Tensor, labels: torch.Tensor,
 def lovasz_hinge_flat(logits: torch.Tensor, labels: torch.Tensor,
                       valid: torch.Tensor | None = None) -> torch.Tensor:
     """Binary Lovász hinge on flat ``(P,)`` logits and {0, 1} labels; 0 when
-    no pixel is valid (the reference's empty-image guard)."""
+    no pixel is valid (the reference's empty-image guard). One process only."""
+    require_one_rank("lovasz_hinge_flat")
     logits = logits.float()
     if valid is not None:
         logits, labels = logits[valid], labels[valid]
@@ -97,7 +116,9 @@ def lovasz_hinge_flat(logits: torch.Tensor, labels: torch.Tensor,
 
 def lovasz_hinge(logits: torch.Tensor, labels: torch.Tensor, per_image: bool = True,
                  ignore: int | None = None) -> torch.Tensor:
-    """Binary Lovász hinge over ``(B, H, W)`` logits and {0, 1} labels."""
+    """Binary Lovász hinge over ``(B, H, W)`` logits and {0, 1} labels. One
+    process only."""
+    require_one_rank("lovasz_hinge")
     if per_image:
         return torch.stack([lovasz_hinge_flat(*flatten_binary_scores(lg, lb, ignore))
                             for lg, lb in zip(logits, labels)]).mean()
@@ -106,12 +127,13 @@ def lovasz_hinge(logits: torch.Tensor, labels: torch.Tensor, per_image: bool = T
 
 def binary_xloss(logits: torch.Tensor, labels: torch.Tensor,
                  ignore: int | None = None) -> torch.Tensor:
-    """Numerically stable binary cross-entropy with logits, mean over valid pixels."""
+    """Numerically stable binary cross-entropy with logits, mean over valid
+    pixels (over N ranks, this rank's share of the global mean)."""
     logits, labels, valid = flatten_binary_scores(logits, labels, ignore)
     x, y = logits.float(), labels.float()
     per = x.clamp_min(0.0) - x * y + torch.log1p(torch.exp(-x.abs()))
     vf = valid.float()
-    return (per * vf).sum() / vf.sum().clamp_min(1.0)
+    return (per * vf).sum() / all_reduce_sum(vf.sum()).clamp_min(1.0)
 
 
 # ------------------------------------------------------------ IoU metrics ---

@@ -2,7 +2,7 @@ from ccnet_tpu_torch.models.backbone import Bottleneck, DilatedResNet
 from ccnet_tpu_torch.models.ccnet import CCNet, CrissCrossAttention, DSNHead, RCCAModule
 from ccnet_tpu_torch.models.deeplabv3 import ASPPModule, DeepLabV3
 from ccnet_tpu_torch.models.pspnet import PSPModule, PSPNet
-from ccnet_tpu_torch.models.registry import build_model
+from ccnet_tpu_torch.models.registry import build_model, randomize_
 
 __all__ = [
     "ASPPModule",
@@ -16,4 +16,5 @@ __all__ = [
     "DSNHead",
     "RCCAModule",
     "build_model",
+    "randomize_",
 ]

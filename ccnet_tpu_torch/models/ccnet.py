@@ -37,7 +37,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ccnet_tpu_torch.models.backbone import DilatedResNet
-from ccnet_tpu_torch.nn.layers import ABN, Conv
+from ccnet_tpu_torch.nn.layers import ABN, Conv, Dropout
 from ccnet_tpu_torch.ops.cc_attention import criss_cross_attention
 from ccnet_tpu_torch.ops.cc_attention_cuda import criss_cross_attention_cuda
 
@@ -117,7 +117,7 @@ class RCCAModule(nn.Module):
         self.bottleneck = nn.Sequential(
             _ConcatConv(in_channels, inter, out_channels, dtype=dtype),
             ABN(out_channels),
-            nn.Dropout(drop_rate),
+            Dropout(drop_rate),
             Conv(out_channels, num_classes, 1, bias=True, dtype=dtype),
         )
 
@@ -138,7 +138,7 @@ class DSNHead(nn.Sequential):
         super().__init__(
             Conv(in_channels, 512, 3, padding=1, bias=True, dtype=dtype),
             ABN(512),
-            nn.Dropout(drop_rate),
+            Dropout(drop_rate),
             Conv(512, num_classes, 1, bias=True, dtype=dtype),
         )
 

@@ -23,7 +23,7 @@ import torch
 from torch import nn
 
 from ccnet_tpu_torch.models.ccnet import DSNHead, DSNSegmenter
-from ccnet_tpu_torch.nn.layers import ABN, Conv
+from ccnet_tpu_torch.nn.layers import ABN, Conv, Dropout
 from ccnet_tpu_torch.ops.pooling import AdaptiveAvgPool
 from ccnet_tpu_torch.ops.resize import upsample_small_align_corners
 
@@ -46,7 +46,7 @@ class ASPPModule(nn.Module):
         self.bottleneck = nn.Sequential(
             Conv(5 * ic, out_features, 1, bias=False, dtype=dtype),
             ABN(out_features),
-            nn.Dropout(drop_rate),
+            Dropout(drop_rate),
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

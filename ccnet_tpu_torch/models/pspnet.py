@@ -24,7 +24,7 @@ import torch
 from torch import nn
 
 from ccnet_tpu_torch.models.ccnet import DSNHead, DSNSegmenter
-from ccnet_tpu_torch.nn.layers import ABN, Conv
+from ccnet_tpu_torch.nn.layers import ABN, Conv, Dropout
 from ccnet_tpu_torch.ops.pooling import AdaptiveAvgPool
 from ccnet_tpu_torch.ops.resize import upsample_small_align_corners
 
@@ -45,7 +45,7 @@ class PSPModule(nn.Module):
             Conv(in_channels + len(sizes) * out_channels, out_channels, 3, padding=1,
                  bias=False, dtype=dtype),
             ABN(out_channels),
-            nn.Dropout(drop_rate),
+            Dropout(drop_rate),
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 from typing import Any
 
+import numpy as np
 import torch
 
 from ccnet_tpu_torch.models.ccnet import CCNet
@@ -43,3 +44,21 @@ def build_model(name: str, num_classes: int = 19, recurrence: int = 2, depth: in
         else:
             raise ValueError(f"unknown model {name!r}; available: ccnet, pspnet, deeplabv3")
     return model.eval().to(device)
+
+
+def randomize_(model: torch.nn.Module, seed: int = 0) -> None:
+    """Seeded perturbation of ``model``'s weights in place, for checks that
+    need every part of the network to matter: gamma = 0.5, BN running stats
+    and every 1-D parameter (BN weight/bias, conv bias) perturbed, so the
+    attention path and every BN move the logits."""
+    rng = np.random.RandomState(seed)
+    with torch.no_grad():
+        for name, t in model.state_dict().items():
+            if name.endswith("gamma"):
+                t.fill_(0.5)
+            elif name.endswith("running_mean"):
+                t.copy_(torch.from_numpy(rng.randn(*t.shape).astype(np.float32) * 0.1))
+            elif name.endswith("running_var"):
+                t.copy_(torch.from_numpy(rng.rand(*t.shape).astype(np.float32) + 0.5))
+            elif t.dim() == 1:
+                t.add_(torch.from_numpy(rng.randn(*t.shape).astype(np.float32) * 0.1).to(t))

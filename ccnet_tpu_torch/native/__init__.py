@@ -29,6 +29,8 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from ccnet_tpu_torch.ops._build import build_lock
+
 SRC = Path(__file__).resolve().parent / "augment.cpp"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ccnet_tpu_torch"
 GXX_FLAGS = ("-O3", "-march=native", "-fopenmp", "-shared", "-fPIC")
@@ -88,8 +90,9 @@ def load() -> ctypes.CDLL:
             raise RuntimeError(f"native augment library unavailable: {_error}")
         try:
             so = _library_path()
-            if not so.is_file():
-                _build(so)
+            with build_lock(so):  # ranks starting at once build it once
+                if not so.is_file():
+                    _build(so)
             lib = ctypes.CDLL(str(so))
         except Exception as e:  # noqa: BLE001 - remembered, raised to every caller
             _error = str(e)

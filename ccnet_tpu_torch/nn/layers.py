@@ -24,6 +24,18 @@ Counterpart of :mod:`ccnet_tpu.nn.layers`, NCHW.
   the forward but updates its running stats with momentum 0, which leaves
   them as they are: the step updates them once, as flax's ``nn.remat``
   does, and the recompute runs the same operations as the forward.
+* Over N ranks (a live process group of more than one process) ABN's train
+  mode normalises with the moments of the global batch, as the JAX ABN's
+  means over a sharded batch are global: :class:`_GlobalBatchNorm` takes
+  each rank's channel means and centred sums of squares in two f32 passes,
+  as ``F.batch_norm`` does, combines them over the ranks in f64 in one
+  ``all_reduce`` with the count, and reduces its gradient sums over the
+  ranks in its backward. So the N-rank moments are the one-process
+  moments up to f32 rounding. One value per channel per rank takes the
+  same route. A recompute under remat issues the same collectives, in the
+  same order, on every rank, and leaves the running stats as they are.
+* :class:`Dropout` is ``nn.Dropout`` whose mask, over N ranks, is the
+  rank's slice of the mask one process draws for the global batch.
 """
 
 from __future__ import annotations
@@ -34,6 +46,9 @@ from contextlib import contextmanager
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ccnet_tpu_torch.parallel.distributed import world
+from ccnet_tpu_torch.parallel.mesh import all_reduce_sum, rank_slice
 
 
 class Conv(nn.Conv2d):
@@ -83,7 +98,10 @@ class ABN(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         momentum = 0.0 if getattr(_STATE, "recomputing", False) else self.momentum
-        if self.training and x.numel() == x.shape[1]:
+        if self.training and world()[1] > 1:
+            y = _GlobalBatchNorm.apply(x, self.weight, self.bias, self.running_mean,
+                                       self.running_var, momentum, self.eps)
+        elif self.training and x.numel() == x.shape[1]:
             y = self._train_one_value(x, momentum)
         elif self.training:
             y = F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
@@ -105,3 +123,81 @@ class ABN(nn.Module):
             self.running_mean.mul_(1 - momentum).add_(momentum * mean)
             self.running_var.mul_(1 - momentum)  # + momentum * 0
         return x * scale.to(x.dtype)[:, None, None] + shift.to(x.dtype)[:, None, None]
+
+
+class _GlobalBatchNorm(torch.autograd.Function):
+    """Train-mode BN of an NCHW input over the global batch of the ranks.
+
+    Forward: each rank's channel mean ``m_r`` and centred sum of squares
+    ``M2_r = Σ (x − m_r)²`` in f32 (two passes: no cancellation), then one
+    ``all_reduce`` in f64 of ``n_r·m_r``, ``M2_r + n_r·m_r²`` and ``n_r``
+    (Chan et al.'s pairwise combination: in f64 the difference ``Σ(M2_r +
+    n_r·m_r²)/n − mean²`` loses nothing an f32 variance holds), so the
+    global mean and biased variance are the one-process ones up to f32
+    rounding; ``y = (x − mean) · γ · rsqrt(var + eps) + β`` in f32 rounded
+    once to x's dtype (as ``F.batch_norm`` rounds the one-process output),
+    and the running stats updated from the global count (unbiased
+    variance). It keeps only x (in its own dtype) and the per-channel
+    statistics for the backward, which reduces ``Σ dy`` and ``Σ dy · x̂``
+    over the ranks in one ``all_reduce``: ``dx = γ · rstd · (dy − mean(dy)
+    − x̂ · mean(dy · x̂))`` over the global batch. The parameter grads are
+    the rank's own sums: the data-parallel wrapper combines them across
+    ranks."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, running_mean, running_var, momentum, eps):
+        C = x.shape[1]
+        count = x.numel() // C
+        x32 = x.float()
+        local_mean = x32.mean(dim=(0, 2, 3))
+        centred = x32 - local_mean[:, None, None]
+        m2 = (centred * centred).sum(dim=(0, 2, 3))
+        del centred
+        m64 = local_mean.double()
+        stats = all_reduce_sum(torch.cat([count * m64, m2.double() + count * m64 * m64,
+                                          m64.new_full((1,), count)]))
+        n = stats[2 * C]
+        mean64 = stats[:C] / n
+        var64 = (stats[C:2 * C] / n - mean64 * mean64).clamp_min(0.0)
+        mean, var, n = mean64.float(), var64.float(), n.float()
+        rstd = torch.rsqrt(var + eps)
+        with torch.no_grad():
+            unbiased = var * (n / (n - 1).clamp_min(1.0))
+            running_mean.mul_(1 - momentum).add_(momentum * mean)
+            running_var.mul_(1 - momentum).add_(momentum * unbiased)
+        scale = weight * rstd
+        ctx.save_for_backward(x, weight, mean, rstd, n, var64 > 0)
+        # in f32 and rounded once, as F.batch_norm (the one-process path) does
+        return torch.addcmul(bias[:, None, None], x32 - mean[:, None, None],
+                             scale[:, None, None]).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, weight, mean, rstd, n, live = ctx.saved_tensors
+        C = x.shape[1]
+        dy32 = dy.float()
+        xhat = (x.float() - mean[:, None, None]) * rstd[:, None, None]
+        sum_dy = dy32.sum(dim=(0, 2, 3))
+        sum_dy_xhat = (dy32 * xhat).sum(dim=(0, 2, 3))
+        sums = all_reduce_sum(torch.cat([sum_dy, sum_dy_xhat])) / n
+        # where the variance is 0 it does not depend on x
+        dx = (weight * rstd)[:, None, None] * (
+            dy32 - sums[:C, None, None] - xhat * (sums[C:] * live)[:, None, None])
+        return dx.to(x.dtype), sum_dy_xhat, sum_dy, None, None, None, None
+
+
+class Dropout(nn.Dropout):
+    """``nn.Dropout``; over N ranks in train mode the mask is the rank's
+    slice of the mask one process draws for the global batch: every rank
+    draws that mask from the same generator state (the train step seeds it
+    from ``(seed, step)``) with the same op on the same shape and dtype, so
+    the N-rank step drops what the one-process step drops and scales the
+    kept values as ``F.dropout`` does."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        rank, size = world()
+        if size == 1 or not self.training or self.p == 0.0:
+            return super().forward(x)
+        mask = F.dropout(x.new_ones((x.shape[0] * size, *x.shape[1:])), self.p, True)
+        keep = rank_slice(mask, rank, size) != 0
+        return (x.float() * keep * (1.0 / (1.0 - self.p))).to(x.dtype)

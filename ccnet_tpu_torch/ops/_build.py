@@ -9,12 +9,16 @@ unchanged one is loaded as it is. The sources expose a plain C interface
 is compiled: a build takes seconds.
 
 A failed build raises. Nothing here falls back to a plain-torch version.
-:func:`build_libraries` starts one ``nvcc`` per source together.
+:func:`build_libraries` starts one ``nvcc`` per source together. Ranks that
+start at once on one machine share the build directory: each build holds a
+file lock (:func:`build_lock`), so one rank compiles a library and the
+others wait for it and load what it wrote.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -22,6 +26,7 @@ import subprocess
 import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
+from contextlib import contextmanager
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -55,6 +60,17 @@ def _source_hash(name: str) -> str:
     return h.hexdigest()[:16]
 
 
+@contextmanager
+def build_lock(so: Path):
+    """Hold an exclusive lock on ``<so>.lock`` (``flock``, released when the
+    holder exits, so a killed build leaves none behind): the processes that
+    build ``so`` at once compile it once."""
+    so.parent.mkdir(parents=True, exist_ok=True)
+    with open(f"{so}.lock", "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        yield
+
+
 def load_library(name: str) -> ctypes.CDLL:
     """The loaded library built from ``csrc/<name>.cu`` (built if needed)."""
     if name in _LIBS:
@@ -62,23 +78,23 @@ def load_library(name: str) -> ctypes.CDLL:
     src = CSRC / f"{name}.cu"
     if not src.is_file():
         raise FileNotFoundError(f"CUDA source {src} is missing")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     so = BUILD_DIR / f"lib{name}_{_source_hash(name)}.so"
-    if so.is_file():
-        BUILD_SECONDS[name] = 0.0
-    else:
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        BUILD_SECONDS[name] = time.perf_counter() - t0
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed for {src} (exit {proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
-        PTXAS_REPORT[name] = (proc.stdout + proc.stderr).strip()
-        os.replace(tmp, so)  # atomic: a concurrent loader never sees half a file
+    with build_lock(so):
+        if so.is_file():
+            BUILD_SECONDS[name] = 0.0
+        else:
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)]
+            t0 = time.perf_counter()
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            BUILD_SECONDS[name] = time.perf_counter() - t0
+            if proc.returncode != 0:
+                os.unlink(tmp)
+                raise RuntimeError(f"nvcc failed for {src} (exit {proc.returncode}):\n"
+                                   f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
+            PTXAS_REPORT[name] = (proc.stdout + proc.stderr).strip()
+            os.replace(tmp, so)  # atomic: a concurrent loader never sees half a file
     lib = ctypes.CDLL(str(so))
     _LIBS[name] = lib
     return lib

@@ -1,6 +1,6 @@
 """Training loop: the reference's ``train.py`` recipe as a library class.
 
-Counterpart of :mod:`ccnet_tpu.train.trainer`, on one device: poly-LR SGD,
+Counterpart of :mod:`ccnet_tpu.train.trainer`: poly-LR SGD,
 the DSN(+OHEM) criterion, epoch-seeded shuffling, a full-state checkpoint
 (and a reference-named ``CS_scenes_{step}.pth``) every ``save_every`` steps
 and at the end, and an emergency save when a run is interrupted.
@@ -23,6 +23,19 @@ chrome trace under ``snapshot_dir/profile``; ``tensorboard`` writes
 ``train/loss``, ``train/lr`` and ``train/img_per_s`` every ``log_every``
 steps to ``snapshot_dir/tb``. Each of these two warns and goes on where it
 is unavailable. ``space`` > 1 (height sharding) is not ported and raises.
+
+Over N ranks (one process per card under torchrun, the group initialised by
+:func:`~ccnet_tpu_torch.parallel.maybe_initialize_distributed`)
+``batch_size`` is the global batch, of which each rank's loader yields an
+equal share, in rank order; the model lives on
+:func:`~ccnet_tpu_torch.parallel.rank_device` and trains through its
+``DistributedDataParallel`` replica, with BN moments, dropout masks, the
+OHEM threshold and the loss means taken over the global batch, so a step
+equals the one-process step on the global batch. The ``device`` augmenter
+draws for the global batch and takes the rank's share; the ``native``
+augmenter's seed adds the rank, as the JAX trainer's adds the process
+index. Checkpoints, the ``.pth``, the profiler trace and TensorBoard are
+written by rank 0 only; ``resume`` loads on every rank.
 """
 
 from __future__ import annotations
@@ -46,6 +59,7 @@ from ccnet_tpu_torch.data.preprocess import (
 )
 from ccnet_tpu_torch.losses import build_criterion
 from ccnet_tpu_torch.models import build_model
+from ccnet_tpu_torch.parallel import data_parallel, is_primary_host, rank_device, world
 from ccnet_tpu_torch.train.state import create_train_state
 from ccnet_tpu_torch.train.step import make_train_step
 from ccnet_tpu_torch.utils import (
@@ -109,12 +123,15 @@ class Trainer:
         self.cfg = c = config
         if c.space > 1:
             raise NotImplementedError("TrainConfig space > 1 is not ported yet")
+        self.rank, self.ranks = world()
+        if c.batch_size % self.ranks:
+            raise ValueError(f"global batch {c.batch_size} must divide over {self.ranks} ranks")
         if c.augment_backend == "native":
             from ccnet_tpu_torch import native
 
             native.load()  # raises here, not in the first step, if it does not build
         self.logger = get_logger("ccnet_tpu_torch.train")
-        self.device = torch.device(c.device)
+        self.device = rank_device(c.device)
         model = build_model(c.model, num_classes=c.num_classes, recurrence=c.recurrence,
                             depth=c.depth, dtype=torch.bfloat16 if c.bf16 else torch.float32,
                             impl=c.impl, seed=c.seed, device=self.device, remat=c.remat)
@@ -135,10 +152,12 @@ class Trainer:
         # as in the JAX package, --start-iters moves the step count, not the
         # schedule's own count
         self.state.step = self.start_step
-        self.train_step = make_train_step(self.criterion, seed=c.seed + 2)
+        # over N ranks: broadcasts rank 0's parameters now (after any restore)
+        self.train_step = make_train_step(self.criterion, seed=c.seed + 2,
+                                          forward=data_parallel(model))
         self._copier = HostToDevice(self.device)
         self.tb_writer = None
-        if c.tensorboard:
+        if c.tensorboard and is_primary_host():
             try:
                 from torch.utils.tensorboard import SummaryWriter
 
@@ -154,14 +173,15 @@ class Trainer:
     def _native_crops(self, images, labels, steps) -> tuple:
         """``augment_backend="native"``: the batch of the step ``next(steps)``
         augmented on the host by the native library, with the JAX package's
-        draws (one process: index 0), then copied; ``(Transfer,)`` of the f32
-        crops and int32 labels. Runs on the prefetch thread, which places the
-        batches in their steps' order."""
+        draws (the rank added to the seed as the JAX trainer adds the process
+        index), then copied; ``(Transfer,)`` of the f32 crops and int32
+        labels. Runs on the prefetch thread, which places the batches in
+        their steps' order."""
         from ccnet_tpu_torch import native
 
         c = self.cfg
         step = next(steps)
-        rng = np.random.RandomState((c.seed + step * 1009) % (2 ** 31))
+        rng = np.random.RandomState((c.seed + step * 1009 + self.rank) % (2 ** 31))
         images, labels = np.asarray(images), np.asarray(labels)
         scales, offs, flips = native.draw_augment_params(
             rng, images.shape[0], images.shape[1:3], tuple(c.input_size),
@@ -175,13 +195,15 @@ class Trainer:
 
     def _augment(self, images: torch.Tensor, labels: torch.Tensor, step: int):
         """Placed raw batch (NHWC) → ``(images (B, 3, H, W) f32, labels
-        (B, H, W) int32)``, on the device, in the step."""
+        (B, H, W) int32)``, on the device, in the step. Over N ranks the
+        ``device`` augmenter's draws are the global batch's, sliced."""
         c = self.cfg
         if c.augment_backend == "device":
             imgs, lbls = device_augment_batch(
                 images, labels, seed=c.seed + 1, step=step, crop_hw=tuple(c.input_size),
                 mean=tuple(c.mean), ignore_label=c.ignore_label, scale_min=c.scale_min,
-                scale_steps=c.scale_steps, scale=c.random_scale, mirror=c.random_mirror)
+                scale_steps=c.scale_steps, scale=c.random_scale, mirror=c.random_mirror,
+                rank=self.rank, ranks=self.ranks)
         elif c.augment_backend == "host_u8":
             imgs, lbls = finish_u8_crops(images, labels, mean=tuple(c.mean))
         elif c.augment_backend in ("precropped", "native"):
@@ -224,6 +246,8 @@ class Trainer:
             self.logger.warning(f"profiler trace not written: {e}")
 
     def _save(self, step: int):
+        if not is_primary_host():  # rank 0 writes for all ranks
+            return
         c = self.cfg
         os.makedirs(c.snapshot_dir, exist_ok=True)
         save_checkpoint(c.snapshot_dir, self.state, step)
@@ -276,7 +300,7 @@ class Trainer:
                     it = None
                     continue
                 images, labels = transfer.wait()
-                if c.profile_steps and step == c.profile_steps[0]:
+                if c.profile_steps and step == c.profile_steps[0] and is_primary_host():
                     profiler = self._start_profiler()
                 if cuda:
                     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))

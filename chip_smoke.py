@@ -38,7 +38,9 @@ failure raises and exits non-zero:
    times at (8, 97, 97, 19) → 769² and (2, 129, 257, 19) → 1025×2049, K6
    with a dense g and with g live on 2 % of the pixels, beside the bounds;
    ``criterion_ohem_dsn`` forward + backward at the 769² step's logits,
-   kernel route against plain route, timed in turns;
+   kernel route against plain route, timed in turns; the OHEM threshold's
+   count bisection (``phase_ohem``) at the step's 8 × 769² map against the
+   exact ``kthvalue`` rule: equal keep masks, both timed;
 6. line kernels vs plain: K7a ``cca_line_fwd`` and K7b ``cca_line_bwd`` on
    both paths as the line route calls them, and the routed Function's
    output and grads (each direction routed as the JAX package routes it),
@@ -117,7 +119,30 @@ failure raises and exits non-zero:
     ``conv12``: the first step's grads (layers 3 and 4, the rest), the
     second step's loss and the BN running stats' update agree, peak memory
     of each (``blocks`` below none);
-20. ``cli.train --profile-steps 1,2``: the chrome trace names K1/K2.
+20. ``cli.train --profile-steps 1,2``: the chrome trace names K1/K2;
+21. data parallelism, two ranks on the one card:
+    ``python -m torch.distributed.run --standalone --nproc_per_node 2
+    chip_smoke.py --rank-main train ...`` runs ``cli.train.main --synthetic``
+    in each rank (gloo: the ranks share the card), CCNet R101 R=2 bf16
+    OHEM+DSN at global batch 8 of 769² (no random scales), 3 steps, a
+    ``.pth`` after each; then the same 3 steps in this process on the same
+    global batches (``ccnet_tpu_torch.parallel.RankOrder``). Each rank's
+    K1–K6 launch counts equal one process's; the losses agree within
+    DDP_LOSS_RTOL and the first step's BN running-stats update within
+    DDP_STATS_RTOL; in each rank, ABN over the ranks on a seeded layer-4 BN
+    input whose shares differ agrees with ``F.batch_norm`` on the global
+    batch within DDP_ABN_RTOL (y, dx, stats): bounds that no update, a
+    halved or doubled one, per-rank BN moments and per-rank BN backward
+    sums each break (``--ddp-diagnostics``); both runs' s/step (two ranks
+    on one card measure correctness, not scaling);
+22. one rank under torchrun over NCCL, 2 steps, against the same 2 steps
+    without torchrun, twice: no further from the first plain run than the
+    second plain run is;
+23. two ranks of sliding ``cli.evaluate.main`` over 4 synthetic 1024×2048
+    images: the summed confusion equals one process's integer for integer,
+    rank 0 alone writes ``result.txt``.
+    A rank that fails or outlasts DDP_TIMEOUT fails the run; the launcher
+    and its ranks run in a session of their own and are killed with it.
 
 Every kernel's time stands beside its bound: the larger of the bytes the
 function must move (each input read once, each output written once,
@@ -137,6 +162,13 @@ also profiles one kernel-route train step of CCNet (769², batch 8),
 PSPNet and DeepLabv3 and prints their top kernels by device time and the
 time of the attention kernels (``cca_*``) among them.
 
+    python3 chip_smoke.py --ddp-diagnostics
+
+runs nothing of the above but the build: phase 21's readings for the two
+ranks as they are and with each fault of DDP_FAULTS planted in both
+(``_plant``), each with its s/step, then rank 0's trace of one two-rank
+step split into global BN, collectives and the rest (``_trace_split``).
+
     python3 chip_smoke.py --ab outputs/parent
 
 runs nothing of the above: it times P1/P4 (``probe_times``) and 4 steps of
@@ -153,6 +185,7 @@ import itertools
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -1582,23 +1615,6 @@ def phase_probe_cli() -> dict:
     return moved
 
 
-def randomize_(model: torch.nn.Module, seed: int = 0) -> None:
-    """Seeded perturbation in place: gamma = 0.5, BN running stats and every
-    1-D parameter (BN weight/bias, conv bias) perturbed, so the attention
-    path and every BN move the logits."""
-    rng = np.random.RandomState(seed)
-    with torch.no_grad():
-        for name, t in model.state_dict().items():
-            if name.endswith("gamma"):
-                t.fill_(0.5)
-            elif name.endswith("running_mean"):
-                t.copy_(torch.from_numpy(rng.randn(*t.shape).astype(np.float32) * 0.1))
-            elif name.endswith("running_var"):
-                t.copy_(torch.from_numpy(rng.rand(*t.shape).astype(np.float32) + 0.5))
-            elif t.dim() == 1:
-                t.add_(torch.from_numpy(rng.randn(*t.shape).astype(np.float32) * 0.1).to(t))
-
-
 def _eval_ab(model, x, tag: str, want: dict) -> None:
     """The eval forward of ``model`` on ``x`` through each CCA route: the
     kernel route's main logits against the plain route's, the kernel
@@ -1650,7 +1666,7 @@ def phase_model(pth: str) -> None:
     """R101 R=2 bf16 with seeded random weights (saved to ``pth``): the eval
     forward's kernel route against its plain route on 8 crops of 769²
     (K1/K2) and on one whole 1024×2048 image (K7a, the line route)."""
-    from ccnet_tpu_torch.models import build_model
+    from ccnet_tpu_torch.models import build_model, randomize_
 
     torch.backends.cudnn.allow_tf32 = True  # the bf16 model's default setting
     model = build_model("ccnet", num_classes=19, recurrence=2, depth=101,
@@ -1797,8 +1813,8 @@ def _top_kernels(fn, top: int = 6) -> str:
 
 
 def random_pth(name: str, pth: str) -> None:
-    """R101 bf16 ``name`` with seeded random weights (:func:`randomize_`), saved."""
-    from ccnet_tpu_torch.models import build_model
+    """R101 bf16 ``name`` with seeded random weights (``randomize_``), saved."""
+    from ccnet_tpu_torch.models import build_model, randomize_
 
     model = build_model(name, num_classes=19, depth=DEPTH, dtype=torch.bfloat16)
     randomize_(model, seed=0)
@@ -2467,6 +2483,497 @@ def phase_profiler(pth: str, tmp: str) -> None:
         f"{sum('cca_fwd' in e['name'] for e in kernels)} of the attention's forward: {cca}")
 
 
+# ----------------------------------------------------------------------------
+# The OHEM threshold by count bisection, which took kthvalue's place.
+def _keep_by_kthvalue(p, valid, thresh: float, min_kept: int):
+    """The keep mask as the port took it before the count bisection: an
+    exact ``torch.kthvalue`` over the flat map (the yardstick)."""
+    flat = torch.where(valid, p, torch.full_like(p, float("inf"))).reshape(-1)
+    kth = torch.kthvalue(flat, min(min_kept, flat.numel())).values
+    t = torch.tensor(thresh, device=p.device)
+    return valid & (p <= torch.where(valid.sum() <= min_kept, torch.ones_like(t),
+                                     torch.maximum(t, kth)))
+
+
+def phase_ohem() -> None:
+    """``ohem_keep_mask`` (the JAX package's count bisection) at the 769²
+    step's map (TRAIN_BATCH × 769², the default thresh 0.7 and min_kept
+    100000) against the exact ``kthvalue`` rule: equal keep masks where the
+    k-th statistic binds and where thresh does; both timed."""
+    from ccnet_tpu_torch.losses.ohem import ohem_keep_mask
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    shape = (TRAIN_BATCH, CROP, CROP)
+    valid = torch.rand(shape, device="cuda", generator=g) > 0.05
+    for case, p in (("k-th binds", 0.6 + 0.4 * torch.rand(shape, device="cuda", generator=g)),
+                    ("thresh binds", torch.rand(shape, device="cuda", generator=g))):
+        got = ohem_keep_mask(p, valid, 0.7, 100000)
+        want = _keep_by_kthvalue(p, valid, 0.7, 100000)
+        if not torch.equal(got, want):
+            raise AssertionError(f"ohem ({case}): {int((got != want).sum())} pixels differ")
+        ms = _time_ms(ohem_keep_mask, p, valid, 0.7, 100000)
+        ref = _time_ms(_keep_by_kthvalue, p, valid, 0.7, 100000)
+        log(f"[ohem] ohem_keep_mask at {shape} ({case}, {int(got.sum())} kept): bisection "
+            f"{ms:.4f} ms, kthvalue {ref:.4f} ms; keep masks equal")
+
+
+# ----------------------------------------------------------------------------
+# Data parallelism: N ranks under torchrun against one process.
+DDP_RANKS = 2  # ranks sharing the one card over gloo
+DDP_STEPS, NCCL_STEPS, DDP_EVAL_IMAGES = 3, 2, 4
+DDP_TIMEOUT = 600  # seconds a torchrun launch may take before its ranks are killed
+# phase_ddp_train's bf16 bounds (NVIDIA H100 80GB HBM3, 700 W; readings
+# in PERF.md). Each sits between what two ranks read against one process
+# and what a fault of DDP_FAULTS reads (``chip_smoke.py
+# --ddp-diagnostics``): the losses catch no update and a halved or doubled
+# one, the first step's BN running-stats update (a forward quantity from
+# the same random weights) catches per-rank BN moments, and ABN over the
+# ranks on a layer-4 BN input of the step against ``F.batch_norm`` on the
+# global batch (DDP_ABN_SHAPE) catches per-rank moments and per-rank
+# backward sums. The parameters' change is printed and not held: from
+# random weights the step's gradient is shattered, so bf16 rounding alone
+# turns it (one process in bf16 against f32 differs by 1.41 of itself,
+# as far as two orthogonal vectors of one length).
+DDP_LOSS_RTOL = 2.5e-4
+DDP_STATS_RTOL = 3e-4
+DDP_ABN_RTOL = 1e-2
+DDP_ABN_SHAPE = (TRAIN_BATCH, 512, 97, 97)  # a layer-4 BN input of the 769² step
+DDP_FAULTS = ("zero", "half", "double", "bn_dx", "bn")
+DDP_PROFILE = (2, 3)  # the two-rank step that --ddp-diagnostics profiles
+
+
+def _torchrun(nproc: int, args, log_path: str) -> None:
+    """``python -m torch.distributed.run --standalone --nproc_per_node nproc
+    chip_smoke.py --rank-main ...``: the ranks in a session of their own,
+    all killed if they outlast DDP_TIMEOUT; raises with the log's tail if
+    any rank fails."""
+    import signal
+
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+           str(nproc), os.path.abspath(__file__), "--rank-main", *args]
+    with open(log_path, "w") as out:
+        proc = subprocess.Popen(cmd, stdout=out, stderr=subprocess.STDOUT, start_new_session=True,
+                                cwd=os.path.dirname(os.path.abspath(__file__)))
+        try:
+            rc = proc.wait(timeout=DDP_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            rc = None
+        finally:
+            try:
+                os.killpg(proc.pid, signal.SIGKILL)  # the agent and every rank it started
+            except ProcessLookupError:
+                pass
+            proc.wait()
+    if rc != 0:
+        with open(log_path) as f:
+            tail = f.read()[-6000:]
+        raise AssertionError(f"torchrun --nproc_per_node {nproc} "
+                             f"{'timed out' if rc is None else f'exited {rc}'}:\n{tail}")
+
+
+def _plant(fault: str) -> None:
+    """Break this rank's step the way ``fault`` names, for
+    ``--ddp-diagnostics``: ``zero`` applies no update, ``half``/``double``
+    scale the rank's loss by 1 or 2N instead of N (DDP averages), ``bn_dx``
+    takes the BN backward's sums over the rank's share alone (as if every
+    rank's were equal), ``bn`` normalises with the rank's own moments
+    (``F.batch_norm``, plain DDP)."""
+    import torch.nn.functional as F
+
+    import ccnet_tpu_torch.nn.layers
+    import ccnet_tpu_torch.train.step
+    from ccnet_tpu_torch.parallel import world
+
+    layers, step = (sys.modules[f"ccnet_tpu_torch.{m}"] for m in ("nn.layers", "train.step"))
+    rank, size = world()
+    if fault == "zero":
+        torch.optim.SGD.step = lambda self, closure=None: None
+    elif fault in ("half", "double"):
+        step.world = lambda: (rank, 1 if fault == "half" else 2 * size)
+    elif fault == "bn_dx":
+        backward, reduce = layers._GlobalBatchNorm.backward, layers.all_reduce_sum
+
+        def local_backward(ctx, dy):
+            layers.all_reduce_sum = lambda t: t * size
+            try:
+                return backward(ctx, dy)
+            finally:
+                layers.all_reduce_sum = reduce
+
+        layers._GlobalBatchNorm.backward = staticmethod(local_backward)
+    elif fault == "bn":
+        class Local:
+            @staticmethod
+            def apply(x, weight, bias, running_mean, running_var, momentum, eps):
+                return F.batch_norm(x, running_mean, running_var, weight, bias, training=True,
+                                    momentum=momentum, eps=eps)
+
+        layers._GlobalBatchNorm = Local
+    else:
+        raise ValueError(f"unknown fault {fault!r}")
+
+
+def _abn_rank_check() -> dict:
+    """In a rank: ABN (identity, as in the trunk) in train mode over the
+    ranks on the rank's share of a seeded global bf16 batch of
+    DDP_ABN_SHAPE whose two halves differ in mean, scale and gradient,
+    against ``F.batch_norm`` on the whole batch in this process:
+    ``||got − want|| / ||want||`` of y, dx and the running stats' update."""
+    import torch.nn.functional as F
+
+    from ccnet_tpu_torch.nn.layers import ABN
+    from ccnet_tpu_torch.parallel import rank_slice, world
+
+    rank, size = world()
+    g = torch.Generator(device="cuda").manual_seed(7)
+    randn = lambda *shape: torch.randn(shape, generator=g, device="cuda")  # noqa: E731
+    C, half = DDP_ABN_SHAPE[1], DDP_ABN_SHAPE[0] // 2
+    x, dy = randn(*DDP_ABN_SHAPE), randn(*DDP_ABN_SHAPE)
+    x[half:] = x[half:] * 2.0 + 1.5
+    dy[half:] += 0.5 + 0.3 * x[half:]
+    x, dy = x.bfloat16(), dy.bfloat16()
+    layer = ABN(C, activation="identity").cuda().train()
+    with torch.no_grad():
+        layer.weight.add_(0.1 * randn(C))
+        layer.bias.add_(0.1 * randn(C))
+    mine = rank_slice(x, rank, size).clone().requires_grad_(True)
+    y = layer(mine)
+    y.backward(rank_slice(dy, rank, size))
+    full = x.clone().requires_grad_(True)
+    mean, var = torch.zeros(C, device="cuda"), torch.ones(C, device="cuda")
+    want = F.batch_norm(full, mean, var, layer.weight.detach(), layer.bias.detach(),
+                        training=True, momentum=0.1, eps=layer.eps)
+    want.backward(dy)
+    rel = lambda a, b: ((a.float() - b.float()).norm() / b.float().norm()).item()  # noqa: E731
+    return {"y": rel(y.detach(), rank_slice(want.detach(), rank, size)),
+            "dx": rel(mine.grad, rank_slice(full.grad, rank, size)),
+            "stats": max(rel(layer.running_mean, mean), rel(layer.running_var - 1, var - 1))}
+
+
+def rank_main(argv) -> None:
+    """One rank under torchrun: ``--rank-main train|train+FAULT|evaluate
+    OUT -- ARGV`` runs ``cli.train.main(ARGV)`` (with :func:`_plant`'s
+    FAULT) or ``cli.evaluate.main(ARGV)`` (on DDP_EVAL_IMAGES synthetic
+    images of EVAL_HW, into ``OUT/eval_r<rank>``) and writes its launch
+    counts and result to ``OUT/rank<rank>.json``."""
+    what, out, cli_argv = argv[0], argv[1], argv[3:]
+    rank = int(os.environ["RANK"])
+    _reset_counts()
+    if what.startswith("train"):
+        from ccnet_tpu_torch.cli.train import main as cli_main
+        from ccnet_tpu_torch.parallel import maybe_initialize_distributed
+
+        if "+" in what:  # the group first: the fault reads the rank and the size
+            maybe_initialize_distributed(device="cuda")
+            _plant(what.split("+")[1])
+        result = cli_main(cli_argv)
+        result["abn"] = _abn_rank_check()
+    else:
+        from ccnet_tpu_torch.cli.evaluate import main as cli_main
+        from ccnet_tpu_torch.data import SyntheticDataset
+
+        result = cli_main(cli_argv + ["--output-dir", os.path.join(out, f"eval_r{rank}")],
+                          dataset=SyntheticDataset(n=DDP_EVAL_IMAGES, hw=EVAL_HW, num_classes=19))
+    from ccnet_tpu_torch.parallel import world
+
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+        json.dump({"rank": rank, "world": world()[1], "launches": _counts(), **{
+            k: result[k] for k in ("losses", "step_seconds", "wall_seconds", "confusion",
+                                   "batch_seconds", "abn") if k in result}}, f)
+
+
+def _ranks(out: str, n: int) -> list:
+    ranks = []
+    for r in range(n):
+        with open(os.path.join(out, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    if [r["world"] for r in ranks] != [n] * n:
+        raise AssertionError(f"ranks saw world sizes {[r['world'] for r in ranks]}, not {n}")
+    return ranks
+
+
+def _weights_diff(a: str, b: str, init: str) -> dict:
+    """Two exported ``.pth`` against each other, by their change from
+    ``init``: ``||Δa − Δb|| / ||Δb||`` over all parameters (``change``; a
+    tensor whose change is near zero, a conv bias ahead of BN, would make a
+    per-tensor ratio noise) and over all BN running stats (``stats``), the
+    worst parameter tensor's ratio, and the largest max |a − b|."""
+    a, b, i = (torch.load(p, map_location="cpu") for p in (a, b, init))
+    sums = {"change": [0.0, 0.0], "stats": [0.0, 0.0]}
+    worst, abs_diff = (0.0, ""), 0.0
+    for k in b:
+        if not a[k].is_floating_point():
+            continue
+        d = a[k].double() - b[k].double()
+        abs_diff = max(abs_diff, d.abs().max().item())
+        moved = (b[k].double() - i[k].double()).norm().item()
+        part = sums["stats" if k.endswith(("running_mean", "running_var")) else "change"]
+        part[0], part[1] = part[0] + d.norm().item() ** 2, part[1] + moved ** 2
+        if moved > 0 and part is sums["change"]:
+            worst = max(worst, (d.norm().item() / moved, k))
+    return {**{k: (n / d) ** 0.5 for k, (n, d) in sums.items()}, "worst": worst, "abs": abs_diff}
+
+
+def _train_argv(pth: str, steps: int, snap: str, save_every: int = 0) -> list:
+    return ["--depth", str(DEPTH), "--device", "cuda", "--batch-size", str(TRAIN_BATCH),
+            "--input-size", f"{CROP},{CROP}", "--synthetic-size", f"{EVAL_HW[0]},{EVAL_HW[1]}",
+            "--ohem", "1", "--num-steps", str(steps), "--save-pred-every",
+            str(save_every or steps), "--restore-from", pth, "--num-workers", "4",
+            "--snapshot-dir", snap, "--random-scale", "0"]
+
+
+def _one_process(pth: str, steps: int, snap: str, ranks: int, save_every: int = 0) -> dict:
+    """``cli.train.main`` in this process on the global batches of
+    ``ranks`` ranks (``RankOrder``; the synthetic set of ``--synthetic``
+    with its device augmentation); its launch counts beside its result."""
+    from ccnet_tpu_torch.cli.train import main
+    from ccnet_tpu_torch.data import SyntheticDataset
+    from ccnet_tpu_torch.parallel import RankOrder
+
+    ds = SyntheticDataset(n=max(TRAIN_BATCH * 4, 16), hw=EVAL_HW, num_classes=19)
+    _reset_counts()
+    result = main(_train_argv(pth, steps, snap, save_every)
+                  + ["--augment-backend", "device", "--cache-decoded", "0"],
+                  dataset=RankOrder(ds, TRAIN_BATCH, ranks, seed=304))
+    return {**result, "launches": _counts()}
+
+
+def _s_step(r: dict) -> str:
+    return (f"{np.median(r['step_seconds'][1:]):.4f} s/step on the card (median of steps 2-, "
+            f"CUDA events), host wall {np.median(r['wall_seconds'][1:]):.4f}")
+
+
+def _ddp_readings(out: str, snap: str, one: dict, pth: str) -> dict:
+    """The two-rank run in ``out`` (rank files) and ``snap`` (its .pth of
+    every step) against one process: the losses' max relative difference,
+    and :func:`_weights_diff` after the first step and after the last."""
+    ranks = _ranks(out, DDP_RANKS)
+    if any(r["losses"] != ranks[0]["losses"] for r in ranks):
+        raise AssertionError(f"the ranks logged different losses: {[r['losses'] for r in ranks]}")
+    pth_of = lambda d, s: os.path.join(d, f"CS_scenes_{s}.pth")  # noqa: E731
+    return {"ranks": ranks, "losses": ranks[0]["losses"],
+            "loss": max(abs(x - y) / abs(y) for x, y in zip(ranks[0]["losses"], one["losses"])),
+            "abn": {k: max(r["abn"][k] for r in ranks) for k in ranks[0]["abn"]},
+            "first": _weights_diff(pth_of(snap, 1), pth_of(one["snap"], 1), pth),
+            "last": _weights_diff(pth_of(snap, DDP_STEPS), pth_of(one["snap"], DDP_STEPS), pth)}
+
+
+def _ddp_run(pth: str, out: str, fault: str = "", profile: bool = False) -> None:
+    """Two ranks of ``cli.train --synthetic`` under torchrun (gloo, the one
+    card), DDP_STEPS steps, a .pth after each, into ``out``."""
+    os.makedirs(out)
+    argv = _train_argv(pth, DDP_STEPS, os.path.join(out, "snap"), save_every=1)
+    if profile:
+        argv += ["--profile-steps", ",".join(map(str, DDP_PROFILE))]
+    _torchrun(DDP_RANKS, ["train" + (f"+{fault}" if fault else ""), out, "--", "--synthetic"]
+              + argv, os.path.join(out, "torchrun.log"))
+
+
+def _ddp_one(pth: str, tmp: str) -> dict:
+    """The same DDP_STEPS steps in this process on the same global batches."""
+    snap = os.path.join(tmp, "ddp_one")
+    return {**_one_process(pth, DDP_STEPS, snap, DDP_RANKS, save_every=1), "snap": snap}
+
+
+def _ddp_line(tag: str, got: dict) -> str:
+    f, last, abn = got["first"], got["last"], got["abn"]
+    return (f"[{tag}] losses " + " ".join(f"{v:.6f}" for v in got["losses"])
+            + f" (max rel {got['loss']:.2e}, tol {DDP_LOSS_RTOL:g}); the first step's BN stats "
+            f"update rel {f['stats']:.3e} (tol {DDP_STATS_RTOL:g}); ABN over the ranks at "
+            f"{DDP_ABN_SHAPE} bf16 against F.batch_norm, worst rank: y {abn['y']:.3e}, dx "
+            f"{abn['dx']:.3e}, stats {abn['stats']:.3e} (tol {DDP_ABN_RTOL:g}); not held: the "
+            f"first step's change rel {f['change']:.3e} (worst tensor {f['worst'][1]} "
+            f"{f['worst'][0]:.3e}), max abs {f['abs']:.3e}; after step {DDP_STEPS}: change rel "
+            f"{last['change']:.3e}, stats rel {last['stats']:.3e}, max abs {last['abs']:.3e}")
+
+
+def _ddp_fails(got: dict) -> bool:
+    return (got["loss"] > DDP_LOSS_RTOL or got["first"]["stats"] > DDP_STATS_RTOL
+            or max(got["abn"].values()) > DDP_ABN_RTOL)
+
+
+def phase_ddp_train(pth: str, tmp: str, smi: str) -> None:
+    """Two ranks of ``cli.train --synthetic`` under torchrun on the one card
+    (gloo), CCNet R101 R=2 bf16 OHEM+DSN, global batch TRAIN_BATCH of 769²,
+    DDP_STEPS steps, against the same steps in one process on the same
+    global batches (``RankOrder``). Each rank launches K1–K6 as one process
+    does; the losses agree within DDP_LOSS_RTOL, the first step's BN
+    running-stats update within DDP_STATS_RTOL, and each rank's ABN check
+    (:func:`_abn_rank_check`) within DDP_ABN_RTOL."""
+    out = os.path.join(tmp, "ddp_train")
+    torch.cuda.empty_cache()  # the ranks share the card with this process
+    _ddp_run(pth, out)
+    one = _ddp_one(pth, tmp)
+    got = _ddp_readings(out, os.path.join(out, "snap"), one, pth)
+    want = _want((CROP, CROP), 2 * DDP_STEPS, 2 * DDP_STEPS, 2 * DDP_STEPS)
+    bad = [r["rank"] for r in got["ranks"] if r["launches"] != want]
+    if bad or one["launches"] != want:
+        raise AssertionError(f"launches: want {want} in every rank and in one process; ranks "
+                             f"{[r['launches'] for r in got['ranks']]}, one process "
+                             f"{one['launches']}")
+    log(f"[ddp-train] cli.train --synthetic CCNet R{DEPTH} R=2 bf16 OHEM global bs {TRAIN_BATCH} "
+        f"{CROP}x{CROP}, {DDP_STEPS} steps, {DDP_RANKS} ranks (torchrun, gloo, one card) against "
+        "one process on the same global batches (losses " + " ".join(
+            f"{v:.6f}" for v in one["losses"]) + ")")
+    log(_ddp_line("ddp-train", got))
+    for r in got["ranks"]:
+        log(f"[ddp-train] rank {r['rank']}: launches " + ", ".join(
+            f"{k} {r['launches'][k]}" for k in ("cca_fwd_col", "cca_fwd_row", "cca_bwd_col",
+                                                "cca_bwd_row", "upsampled_nll_fwd",
+                                                "upsampled_nll_bwd"))
+            + f"; {_s_step(r)}")
+    log(f"[ddp-train] one process: {_s_step(one)}. {smi}. Two ranks sharing one card "
+        "measure correctness, not scaling.")
+    for d in (out, one["snap"]):  # six .pth and six checkpoints of R101
+        shutil.rmtree(d)
+    if _ddp_fails(got):
+        raise AssertionError("ddp-train: the two ranks disagree with one process")
+
+
+def _trace_split(path: str) -> dict:
+    """One profiled step of a rank, from its chrome trace: the trace's span;
+    the device's kernel time (sum) and busy time (union); the host time
+    inside ``_GlobalBatchNorm``'s forward and backward (the union of their
+    ops on each thread: the launches of its kernels and the waits on its
+    collectives) and the device time of the kernels launched there; each
+    collective op's count, host time and count inside BN."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+
+    def union(spans) -> float:
+        total, end = 0.0, -1.0
+        for a, b in sorted(spans):
+            total, end = total + max(0.0, b - max(a, end)), max(end, b)
+        return total / 1e6
+
+    bn = {}
+    for e in events:
+        if e.get("cat") == "cpu_op" and "_GlobalBatchNorm" in e["name"]:
+            bn.setdefault(e["tid"], []).append((e["ts"], e["ts"] + e["dur"]))
+    inside = lambda e: any(a <= e["ts"] <= b for a, b in bn.get(e["tid"], ()))  # noqa: E731
+    launch = {e["args"]["correlation"]: e for e in events
+              if e.get("cat") in ("cuda_runtime", "cuda_driver")
+              and "correlation" in e.get("args", {})}
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    bn_kernels = [e for e in kernels if (src := launch.get(e.get("args", {}).get("correlation")))
+                  is not None and inside(src)]
+    comm = {}
+    for e in events:
+        if e.get("cat") == "cpu_op" and e["name"].startswith(("c10d::", "gloo:", "nccl:")):
+            c = comm.setdefault(e["name"], [0, 0.0, 0])
+            c[0], c[1], c[2] = c[0] + 1, c[1] + e["dur"] / 1e6, c[2] + inside(e)
+    return {"span": union([(min(e["ts"] for e in events),
+                            max(e["ts"] + e["dur"] for e in events))]),
+            "kernels": sum(e["dur"] for e in kernels) / 1e6,
+            "busy": union((e["ts"], e["ts"] + e["dur"]) for e in kernels),
+            "bn_host": sum(union(v) for v in bn.values()), "bn_ops": sum(map(len, bn.values())),
+            "bn_kernels": sum(e["dur"] for e in bn_kernels) / 1e6, "comm": comm}
+
+
+def ddp_diagnostics(pth: str, tmp: str, smi: str) -> None:
+    """``--ddp-diagnostics``: phase_ddp_train's readings for the two ranks
+    as they are and with each fault of DDP_FAULTS planted in both ranks
+    (:func:`_plant`), against the same one-process run, each with its
+    s/step; then one two-rank step (DDP_PROFILE) under ``torch.profiler``
+    (rank 0's trace) split into BN, collectives and the rest."""
+    one = _ddp_one(pth, tmp)
+    log(f"[ddp-diag] one process: losses " + " ".join(f"{v:.6f}" for v in one["losses"])
+        + f"; {_s_step(one)}. {smi}")
+    for fault in ("",) + DDP_FAULTS:
+        out = os.path.join(tmp, f"ddp_{fault or 'clean'}")
+        torch.cuda.empty_cache()
+        _ddp_run(pth, out, fault)
+        got = _ddp_readings(out, os.path.join(out, "snap"), one, pth)
+        log(_ddp_line(f"ddp-diag {fault or 'no fault'}", got) + f"; fails the phase: "
+            f"{_ddp_fails(got)}; rank 0 {_s_step(got['ranks'][0])}")
+        shutil.rmtree(out)
+    out = os.path.join(tmp, "ddp_profile")
+    _ddp_run(pth, out, profile=True)
+    split = _trace_split(os.path.join(out, "snap", "profile", "trace_%d_%d.json" % DDP_PROFILE))
+    log(f"[ddp-diag] rank 0's step {DDP_PROFILE[0]} under torch.profiler (2 ranks, gloo, one "
+        f"card): trace span {split['span']:.4f} s; kernels {split['kernels']:.4f} s, device "
+        f"busy {split['busy']:.4f} s; global BN ({split['bn_ops']} host ops): {split['bn_host']:.4f}"
+        f" s of host time, {split['bn_kernels']:.4f} s of kernels; collectives (count, host s, "
+        f"count inside BN): " + "; ".join(f"{k} {c[0]} {c[1]:.4f} {c[2]}"
+                                          for k, c in sorted(split["comm"].items()))
+        + f". {smi}")
+
+
+def phase_ddp_nccl_one_rank(pth: str, tmp: str) -> None:
+    """One rank of ``cli.train --synthetic`` under torchrun over NCCL (the
+    backend of one rank per card), NCCL_STEPS steps, against the same steps
+    without torchrun, twice: the torchrun run's losses and weights differ
+    from the first plain run by no more than the second plain run does."""
+    out = os.path.join(tmp, "ddp_nccl")
+    os.makedirs(out)
+    torch.cuda.empty_cache()
+    _torchrun(1, ["train", out, "--", "--synthetic"]
+              + _train_argv(pth, NCCL_STEPS, os.path.join(out, "snap")),
+              os.path.join(out, "torchrun.log"))
+    with open(os.path.join(out, "torchrun.log")) as f:
+        if "backend nccl" not in f.read():
+            raise AssertionError("the one-rank run did not initialise NCCL")
+    rank, = _ranks(out, 1)
+    one = [_one_process(pth, NCCL_STEPS, os.path.join(out, f"one{i}"), 1) for i in range(2)]
+    pth_of = lambda d: os.path.join(d, f"CS_scenes_{NCCL_STEPS}.pth")  # noqa: E731
+    got = _weights_diff(pth_of(os.path.join(out, "snap")), pth_of(os.path.join(out, "one0")), pth)
+    rep = _weights_diff(pth_of(os.path.join(out, "one1")), pth_of(os.path.join(out, "one0")), pth)
+    loss = max(abs(a - b) / abs(b) for a, b in zip(rank["losses"], one[0]["losses"]))
+    rep_loss = max(abs(a - b) / abs(b) for a, b in zip(one[1]["losses"], one[0]["losses"]))
+    log(f"[ddp-nccl] torchrun --nproc_per_node 1 (nccl) cli.train R{DEPTH} bs {TRAIN_BATCH}, "
+        f"{NCCL_STEPS} steps: losses " + " ".join(f"{v:.6f}" for v in rank["losses"])
+        + " against " + " ".join(f"{v:.6f}" for v in one[0]["losses"])
+        + f" without torchrun: loss rel {loss:.2e}, max abs {got['abs']:.3e}, change rel "
+        f"{got['change']:.3e}, stats rel {got['stats']:.3e}; the repeat without torchrun: loss "
+        f"rel {rep_loss:.2e}, max abs {rep['abs']:.3e}, change rel {rep['change']:.3e}, stats rel "
+        f"{rep['stats']:.3e}; {_s_step(rank)} (torchrun), {_s_step(one[0])} (plain)")
+    if loss > rep_loss or got["abs"] > rep["abs"]:
+        raise AssertionError("ddp-nccl: the NCCL rank differs from the plain run by more than "
+                             "the plain run from itself")
+
+
+def phase_ddp_eval(pth: str, tmp: str) -> None:
+    """Two ranks of sliding ``cli.evaluate`` under torchrun (gloo, one card)
+    over DDP_EVAL_IMAGES synthetic EVAL_HW images: each rank scores its
+    share, the summed confusion equals the one-process one integer for
+    integer, rank 0 alone writes ``result.txt``."""
+    from ccnet_tpu_torch.cli.evaluate import main
+    from ccnet_tpu_torch.data import SyntheticDataset
+
+    out = os.path.join(tmp, "ddp_eval")
+    os.makedirs(out)
+    argv = ["--restore-from", pth, "--depth", str(DEPTH), "--input-size", f"{CROP},{CROP}",
+            "--device", "cuda", "--save-preds", "0", "--num-workers", "2"]
+    torch.cuda.empty_cache()
+    _torchrun(DDP_RANKS, ["evaluate", out, "--"] + argv, os.path.join(out, "torchrun.log"))
+    ranks = _ranks(out, DDP_RANKS)
+    _reset_counts()
+    one = main(argv + ["--output-dir", os.path.join(out, "one")],
+               dataset=SyntheticDataset(n=DDP_EVAL_IMAGES, hw=EVAL_HW, num_classes=19))
+    share = DDP_EVAL_IMAGES // DDP_RANKS
+    if _counts() != _eval_want("sliding", DDP_EVAL_IMAGES) or any(
+            r["launches"] != _eval_want("sliding", share) for r in ranks):
+        raise AssertionError(f"eval launches: one process {_counts()}, ranks "
+                             f"{[r['launches'] for r in ranks]}")
+    want = np.asarray(one["confusion"])
+    for r in ranks:
+        if not np.array_equal(np.asarray(r["confusion"]), want):
+            raise AssertionError(f"rank {r['rank']}'s summed confusion differs from one "
+                                 f"process's in {int((np.asarray(r['confusion']) != want).sum())} "
+                                 "entries")
+    written = [os.path.isfile(os.path.join(out, f"eval_r{r}", "result.txt"))
+               for r in range(DDP_RANKS)]
+    if written != [True] + [False] * (DDP_RANKS - 1):
+        raise AssertionError(f"result.txt written by ranks {written}")
+    log(f"[ddp-eval] cli.evaluate sliding R{DEPTH} bf16, {DDP_EVAL_IMAGES} synthetic "
+        f"{EVAL_HW[0]}x{EVAL_HW[1]} images, {DDP_RANKS} ranks (torchrun, gloo, one card, "
+        f"{share} images each): summed confusion = one process's, integer for integer (sum "
+        f"{int(want.sum())}, meanIU {one['meanIU']:.6f}); result.txt written once, by rank 0; "
+        "s/img on the card " + "; ".join(
+            f"rank {r['rank']} " + " ".join(f"{v:.4f}" for v in r["batch_seconds"])
+            for r in ranks) + "; one process " + " ".join(f"{v:.4f}" for v in one["batch_seconds"]))
+
+
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
@@ -2476,17 +2983,34 @@ def main(argv=None) -> None:
     parser.add_argument("--ab", metavar="PARENT_DIR",
                         help="instead, time P1/P4 and cli.train --synthetic in the checkout "
                              "PARENT_DIR and in this one in turns (parent, this, this, parent)")
+    parser.add_argument("--ddp-diagnostics", action="store_true",
+                        help="instead, read phase_ddp_train's numbers with each planted fault "
+                             "and profile one two-rank step")
+    argv = sys.argv[1:] if argv is None else argv
+    if argv[:1] == ["--rank-main"]:  # one rank of a torchrun launch below
+        rank_main(argv[1:])
+        return
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; needs one H100")
     if args.ab:
         ab(args.ab)
         return
+    if args.ddp_diagnostics:
+        smi = phase_card()
+        phase_build()
+        with tempfile.TemporaryDirectory() as tmp:
+            pth = os.path.join(tmp, "ccnet_r101_random.pth")
+            random_pth("ccnet", pth)
+            ddp_diagnostics(pth, tmp, smi)
+        log(smi)
+        return
     smi = phase_card()
     phase_build()
     report = phase_kernels()
     report.update(phase_bwd_kernels())
     report.update(phase_loss_kernels())
+    phase_ohem()
     report.update(phase_line_kernels())
     report.update(phase_probes())
     probe_launches = phase_probe_cli()
@@ -2522,6 +3046,10 @@ def main(argv=None) -> None:
         phase_native_train(ccnet_pth, tmp)
         phase_remat(ccnet_pth)
         phase_profiler(ccnet_pth, tmp)
+        # data parallelism: two ranks on the one card, one rank over NCCL
+        phase_ddp_train(ccnet_pth, tmp, smi)
+        phase_ddp_nccl_one_rank(ccnet_pth, tmp)
+        phase_ddp_eval(trained_769, tmp)
     # each kernel's launches in the main paths that run it: K1–K6 in the 769²
     # cli.train run (K1/K2 plus the sliding evaluation's, K5/K6 plus
     # full-frame, PSPNet's and DeepLabv3's cli.train), K7a in the --whole and

@@ -6,9 +6,12 @@
   run as the bare interpret-mode Pallas kernel (``interpret=True,
   partitioned=False``), at ``tests/test_upsampled_ce.py``'s shapes:
   < 1e-5 forward, < 1e-4 x max|grad| backward;
-* ``ohem_keep_mask`` (exact ``torch.kthvalue``) EQUAL to JAX's
-  (count bisection) on the same probabilities, in the ``p_k > thresh``,
-  ``c_t >= k`` and ``num_valid <= min_kept`` cases;
+* ``ohem_keep_mask`` EQUAL to JAX's on the same probabilities, in the
+  ``p_k > thresh``, ``c_t >= k`` and ``num_valid <= min_kept`` cases, and
+  the ported count bisection (``kth_smallest_bisect``, ``ohem_threshold``)
+  equal to JAX's on seeded maps: ``thresh <= 0`` (all 25 passes), the k-th
+  statistic above ``thresh``, ``c_t >= k``, ``num_valid <= min_kept`` and
+  ties at the k-th value;
 * ``criterion_dsn`` / ``criterion_ohem_dsn`` values and grads vs JAX.
 
 Logits are NHWC on the JAX side and NCHW on the port's; the CUDA kernels
@@ -26,7 +29,9 @@ import jax.numpy as jnp
 from ccnet_tpu.losses import criterion as jcrit
 from ccnet_tpu.losses.cross_entropy import softmax_cross_entropy_ignore as jax_ce
 from ccnet_tpu.losses.ohem import ohem_cross_entropy as jax_ohem_ce
+from ccnet_tpu.losses.ohem import kth_smallest_bisect as jax_kth
 from ccnet_tpu.losses.ohem import ohem_keep_mask as jax_keep_mask
+from ccnet_tpu.losses.ohem import ohem_threshold as jax_threshold
 from ccnet_tpu.ops import upsampled_ce as jup
 
 from ccnet_tpu_torch.losses import (
@@ -36,6 +41,7 @@ from ccnet_tpu_torch.losses import (
     ohem_keep_mask,
     softmax_cross_entropy_ignore,
 )
+from ccnet_tpu_torch.losses.ohem import kth_smallest_bisect, ohem_threshold
 from ccnet_tpu_torch.ops import upsampled_ce as U
 
 SHAPES = [  # B, h, w, C, r (tests/test_upsampled_ce.py)
@@ -135,6 +141,56 @@ def test_ohem_keep_mask_equals_jax(case):
         np.testing.assert_array_equal(got, valid)
     elif case == "kth":
         assert min_kept <= got.sum() < valid.sum()
+
+
+def _flat_map(case: str):
+    """(flat map with +inf at invalid pixels, k, thresh, num_valid,
+    min_kept) of one threshold regime."""
+    rng = np.random.RandomState(["full", "kth", "thresh", "few_valid", "ties",
+                                 "ties_full"].index(case) + 10)
+    n = 2 * 33 * 41
+    valid = rng.rand(n) > 0.1
+    p = rng.rand(n).astype(np.float32)
+    thresh, min_kept = 0.7, 500
+    if case == "full":  # thresh <= 0: the bisection runs all 25 passes over [0, 1]
+        thresh, min_kept = 0.0, 700
+    elif case == "kth":  # p_k > thresh
+        p = (0.7 + 0.3 * p).astype(np.float32)
+    elif case == "thresh":  # c_t >= k
+        min_kept = 100
+    elif case == "few_valid":  # num_valid <= min_kept: keep everything
+        min_kept = int(valid.sum()) + 10
+    else:  # eight distinct values: the k-th sits inside a run of ties
+        p = (np.floor(p * 8) / 8 + 0.05).astype(np.float32)
+        thresh, min_kept = (0.3 if case == "ties" else 0.0), 1234
+    flat = np.where(valid, p, np.inf).astype(np.float32)
+    return flat, min(min_kept, n), thresh, int(valid.sum()), min_kept
+
+
+@pytest.mark.parametrize("case", ["full", "kth", "thresh", "few_valid", "ties", "ties_full"])
+def test_ohem_threshold_equals_jax(case):
+    """The ported threshold, and with it the keep set, is JAX's to the bit."""
+    flat, k, thresh, num_valid, min_kept = _flat_map(case)
+    want = float(jax_threshold(jnp.asarray(flat), k, thresh, jnp.asarray(num_valid),
+                               min_kept))
+    got = float(ohem_threshold(torch.from_numpy(flat), k, thresh, torch.tensor(num_valid),
+                               min_kept))
+    assert got == want
+    if case == "few_valid":
+        assert got == 1.0
+    elif case in ("kth", "ties"):  # the k-th statistic decides, and keeps >= k pixels
+        assert got > thresh and (flat <= got).sum() >= k
+
+
+@pytest.mark.parametrize("case", ["full", "ties_full"])
+@pytest.mark.parametrize("iters", [25, 13, 3])
+def test_kth_smallest_bisect_equals_jax(case, iters):
+    flat, k, *_ = _flat_map(case)
+    want = float(jax_kth(jnp.asarray(flat), k, iters=iters))
+    got = float(kth_smallest_bisect(torch.from_numpy(flat), k, iters=iters))
+    assert got == want
+    if iters == 25:  # converged: the k-th smallest value itself, to f32 resolution
+        np.testing.assert_allclose(got, np.sort(flat)[k - 1], rtol=1e-6)
 
 
 def _outputs(seed, B=2, h=7, w=7, C=6, r=4):
