@@ -24,9 +24,14 @@ Over N cards, one process per card under torchrun::
 ``--data-parallel 1`` (the default) shards the images over the ranks; the
 confusion matrices are summed once at the end, every rank returns the
 global result, rank 0 writes ``result.txt``. ``--data-parallel 0`` asks for
-one process and exits under torchrun. A single process that sees several
-cards uses one and logs the torchrun line. Not ported (it raises):
-``--space`` > 1.
+one process and exits under torchrun (unless ``--space`` takes every rank).
+A single process that sees several cards uses one and logs the torchrun
+line. ``--whole 1 --space N`` splits each image's height over N ranks
+(:mod:`ccnet_tpu_torch.parallel.spatial`; N must divide the ranks, and it
+exits without ``--whole``), each rank scoring its own rows::
+
+    python -m torch.distributed.run --standalone --nproc_per_node 2 \
+        -m ccnet_tpu_torch.cli.evaluate --whole 1 --space 2 --restore-from ccnet.pth
 """
 
 from __future__ import annotations
@@ -35,7 +40,12 @@ import argparse
 
 import torch
 
-from ccnet_tpu_torch.cli.common import check_data_parallel, note_unused_cards, str2bool
+from ccnet_tpu_torch.cli.common import (
+    check_data_parallel,
+    note_unused_cards,
+    resolve_space,
+    str2bool,
+)
 from ccnet_tpu_torch.data import (
     CITYSCAPES_CLASS_NAMES,
     CITYSCAPES_MEAN_BGR,
@@ -87,7 +97,8 @@ def get_parser():
                    help="under torchrun, shard the images over the ranks (no-op in one "
                         "process)")
     p.add_argument("--space", type=int, default=1,
-                   help="height sharding of --whole inference (not ported yet)")
+                   help="under torchrun, split each image's height over this many ranks "
+                        "(--whole only; must divide the ranks)")
     p.add_argument("--synthetic", action="store_true")
     p.add_argument("--synthetic-size", type=str, default="1024,2048")
     p.add_argument("--device", type=str, default="cuda", help="cuda, cuda:N or cpu")
@@ -100,11 +111,9 @@ def main(argv=None, dataset=None):
     args = get_parser().parse_args(argv)
     logger = get_logger("ccnet_tpu_torch.cli.evaluate")
     maybe_initialize_distributed(logger, device=args.device)
-    if args.space > 1:
-        raise NotImplementedError("--space (height-sharded whole-image inference) "
-                                  "is not ported yet")
+    space, data, groups = resolve_space(args, logger)
     device = rank_device(args.device)
-    check_data_parallel(args.data_parallel)
+    check_data_parallel(args.data_parallel, groups)
     note_unused_cards(logger, device, "ccnet_tpu_torch.cli.evaluate")
     h, w = (int(x) for x in args.input_size.split(","))
     if args.fp32:
@@ -149,7 +158,7 @@ def main(argv=None, dataset=None):
         dataset = CityscapesDataset(args.data_dir, args.data_list, split=args.split,
                                     raw_dtype="uint8")
     loader = DataLoader(dataset, args.batch_size, shuffle=False, num_workers=args.num_workers,
-                        drop_last=False)
+                        drop_last=False, process_index=data, process_count=groups)
 
     if is_voc:
         mean = VOC_MEAN
@@ -164,7 +173,7 @@ def main(argv=None, dataset=None):
         apply_fn, num_classes=args.num_classes, tile_hw=(h, w),
         scales=[float(s) for s in args.scales.split(",")],
         flip=args.flip, whole=args.whole, mean=mean, class_names=class_names,
-        bucket=bucket, palette=palette, device=device,
+        bucket=bucket, palette=palette, device=device, space=space,
     )
     result = evaluator.run(loader, output_dir=args.output_dir,
                            save_preds=args.save_preds, logger=logger)

@@ -15,7 +15,9 @@ standard library (no PIL). Inputs are mean-subtracted as in training.
 samples given in memory in place of the ``--split`` images under
 ``--data-dir``. Under torchrun (one process per card) ``--data-parallel 1``,
 the default, shards the images over the ranks, each writing its own PNGs;
-``--data-parallel 0`` exits there. Not ported (it raises): ``--space`` > 1.
+``--data-parallel 0`` exits there. ``--whole 1 --space N`` splits each
+image's height over N ranks (as ``cli.evaluate`` does); the group's first
+rank writes the PNGs.
 """
 
 from __future__ import annotations
@@ -27,7 +29,12 @@ import time
 
 import torch
 
-from ccnet_tpu_torch.cli.common import check_data_parallel, note_unused_cards, str2bool
+from ccnet_tpu_torch.cli.common import (
+    check_data_parallel,
+    note_unused_cards,
+    resolve_space,
+    str2bool,
+)
 from ccnet_tpu_torch.data import CityscapesDataset, DataLoader, trainid_to_labelid
 from ccnet_tpu_torch.data.palette import cityscapes_palette, save_grey_png, save_indexed_png
 from ccnet_tpu_torch.evaluation import Evaluator
@@ -61,23 +68,22 @@ def get_parser():
                    help="under torchrun, shard the images over the ranks (no-op in one "
                         "process)")
     p.add_argument("--space", type=int, default=1,
-                   help="height sharding of --whole inference (not ported yet)")
+                   help="under torchrun, split each image's height over this many ranks "
+                        "(--whole only; must divide the ranks)")
     p.add_argument("--device", type=str, default="cuda", help="cuda, cuda:N or cpu")
     return p
 
 
 def main(argv=None, dataset=None) -> dict:
     """Write one PNG per image; returns ``{"paths", "seconds"}``: the PNGs in
-    order (over N ranks, this rank's) and each image's host seconds from its
-    prediction to its PNG."""
+    order (over N ranks, this rank's; none on a space group's other ranks)
+    and each image's host seconds from its prediction to its PNG."""
     args = get_parser().parse_args(argv)
     logger = get_logger("ccnet_tpu_torch.cli.predict")
     maybe_initialize_distributed(logger, device=args.device)
-    if args.space > 1:
-        raise NotImplementedError("--space (height-sharded whole-image inference) "
-                                  "is not ported yet")
+    space, data, groups = resolve_space(args, logger)
     device = rank_device(args.device)
-    check_data_parallel(args.data_parallel)
+    check_data_parallel(args.data_parallel, groups)
     note_unused_cards(logger, device, "ccnet_tpu_torch.cli.predict")
     h, w = (int(x) for x in args.input_size.split(","))
     if args.fp32:
@@ -95,11 +101,12 @@ def main(argv=None, dataset=None) -> dict:
 
     evaluator = Evaluator(apply_fn, num_classes=args.num_classes, tile_hw=(h, w),
                           scales=[float(s) for s in args.scales.split(",")],
-                          flip=args.flip, whole=args.whole, device=device)
+                          flip=args.flip, whole=args.whole, device=device, space=space)
     if dataset is None:
         dataset = CityscapesDataset(args.data_dir, args.data_list, split=args.split,
                                     raw_dtype="uint8")
-    loader = DataLoader(dataset, 1, shuffle=False, num_workers=4, drop_last=False)
+    loader = DataLoader(dataset, 1, shuffle=False, num_workers=4, drop_last=False,
+                        process_index=data, process_count=groups)
 
     os.makedirs(args.output_dir, exist_ok=True)
     palette = cityscapes_palette()
@@ -107,6 +114,8 @@ def main(argv=None, dataset=None) -> dict:
     for images, _, names in loader:
         t0 = time.perf_counter()
         preds = evaluator.predict_batch(images)
+        if space is not None and space.index:
+            preds = preds[:0]  # the space group's first rank writes the PNGs
         for pred, name in zip(preds, names):
             path = osp.join(args.output_dir, f"{name}.png")
             if args.labelid:

@@ -17,6 +17,15 @@ the ranks once, after the loop (:func:`~ccnet_tpu_torch.evaluation.metrics.
 cross_process_sum`; no collective mid-loop, where the running meanIU in the
 log is the rank's own), so every rank returns the global result, and rank
 0 alone writes ``result.txt``.
+
+With ``space`` (a :class:`~ccnet_tpu_torch.parallel.spatial.SpaceGroup`,
+``--whole --space N``) the ranks of a space group load the same images,
+each predicts and scores its own rows of every image
+(:func:`~ccnet_tpu_torch.evaluation.sliding.predict_multiscale` with
+``space``), so every pixel counts once in the summed confusion; for PNGs
+the prediction rows are gathered and the group's first rank writes them.
+The result's ``collectives`` holds the group's counts (calls, bytes) of
+halo exchanges, gathers and sums.
 """
 
 from __future__ import annotations
@@ -77,6 +86,7 @@ class Evaluator:
         bucket: Optional[int] = None,
         palette: Optional[list] = None,
         device: torch.device | str = "cpu",
+        space=None,
     ):
         self.apply_fn = apply_fn
         self.num_classes = num_classes
@@ -94,6 +104,9 @@ class Evaluator:
         self.bucket = bucket
         self.palette = palette
         self.device = torch.device(device)
+        if space is not None and not whole:
+            raise ValueError("height sharding (space) applies to whole-image evaluation only")
+        self.space = space
         self._mean_dev = torch.as_tensor(self.mean, device=self.device)
         self._copier = HostToDevice(self.device)
 
@@ -118,19 +131,36 @@ class Evaluator:
         arrays = (images,) if labels is None else (images, labels)
         return self._copier(*arrays), (H, W)
 
-    def _predict(self, images: torch.Tensor) -> torch.Tensor:
-        """(B, H, W, 3) raw BGR on the device → (B, H, W) uint8 trainIds."""
+    def _rows(self, height: int) -> Tuple[int, int]:
+        """The rows of an image of ``height`` rows this rank predicts."""
+        return (0, height) if self.space is None else self.space.rows(height)
+
+    def _predict(self, images: torch.Tensor, H: int, W: int) -> Tuple[torch.Tensor, int]:
+        """(B, Hp, Wp, 3) raw BGR on the device → ``(trainIds, r0)``: this
+        rank's rows ``[r0, …)`` of the (B, H, W) uint8 trainIds, cropped to
+        the image's own ``(H, W)``."""
         x = (images.float() - self._mean_dev).permute(0, 3, 1, 2)
         logits = predict_multiscale(self.apply_fn, x, self.tile_hw, self.num_classes,
-                                    scales=self.scales, flip=self.flip, whole=self.whole)
-        return logits.argmax(dim=1).to(torch.uint8)
+                                    scales=self.scales, flip=self.flip, whole=self.whole,
+                                    space=self.space)
+        r0, r1 = self._rows(x.shape[2])
+        keep = max(0, min(r1, H) - r0)
+        return logits[:, :, :keep, :W].argmax(dim=1).to(torch.uint8), r0
+
+    def _whole(self, preds: torch.Tensor, r0: int, H: int) -> torch.Tensor:
+        """The (B, H, W) trainIds of which ``preds`` are this rank's rows
+        from ``r0``: gathered over the space group."""
+        if self.space is None:
+            return preds
+        return self.space.gather(preds[:, None], r0, H)[:, 0]
 
     def predict_batch(self, images: np.ndarray) -> np.ndarray:
-        """Raw BGR images (B, H, W, 3), f32 or uint8 → trainIds (B, H, W)."""
+        """Raw BGR images (B, H, W, 3), f32 or uint8 → trainIds (B, H, W).
+        With ``space`` every rank of the group returns the whole images."""
         with torch.inference_mode():
             transfer, (H, W) = self.place(images)
             dev, = transfer.wait()
-            return self._predict(dev)[:, :H, :W].cpu().numpy()
+            return self._whole(*self._predict(dev, H, W), H).cpu().numpy()
 
     def run(self, loader, output_dir: Optional[str] = None, save_preds: bool = False,
             log_every: int = 10, logger=None) -> dict:
@@ -149,10 +179,13 @@ class Evaluator:
             for transfer, (H, W), names in it:
                 dev_images, dev_labels = transfer.wait()
                 start = _mark(self.device)
-                preds = self._predict(dev_images)[:, :H, :W]
-                acc.update(dev_labels, preds)
+                preds, r0 = self._predict(dev_images, H, W)
+                acc.update(dev_labels[:, r0:r0 + preds.shape[1]], preds)
                 marks.append((start, _mark(self.device)))
                 if save_preds and output_dir:  # PNG encodes overlap the next batch
+                    preds = self._whole(preds, r0, H)
+                    if self.space is not None and self.space.index:
+                        preds = preds[:0]  # the group's first rank writes them
                     for p, name in zip(preds.cpu().numpy(), names):
                         writes.append(writer.submit(
                             save_indexed_png, osp.join(output_dir, f"{name}.png"), p, palette))
@@ -172,6 +205,8 @@ class Evaluator:
             "batch_seconds": [_elapsed(a, b) for a, b in marks],
             "wall_seconds": wall,
         }
+        if self.space is not None:
+            result["collectives"] = {k: list(v) for k, v in self.space.counts.items()}
         if self.class_names:
             result["per_class"] = {n: float(x) for n, x in zip(self.class_names, iu)}
         if output_dir and is_primary_host():

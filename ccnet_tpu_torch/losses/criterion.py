@@ -21,9 +21,9 @@ Over N ranks (a live process group) ``criterion_dsn`` and
 batch: the OHEM threshold is the global one and each masked mean divides
 by the global count (:mod:`~ccnet_tpu_torch.losses.ohem`,
 :func:`~ccnet_tpu_torch.losses.cross_entropy.masked_mean`), so the ranks'
-shares sum to the one-process loss of the global batch. The Lovász term of
-``criterion_ohem_dsn2`` sorts the errors of the whole batch, which no rank
-holds: it raises ``NotImplementedError`` over N ranks.
+shares sum to the one-process loss of the global batch. So does
+``criterion_ohem_dsn2``: its Lovász term sorts the errors of the global
+batch, gathered from every rank (:mod:`~ccnet_tpu_torch.losses.lovasz`).
 """
 
 from __future__ import annotations
@@ -34,7 +34,7 @@ from typing import Callable, Dict
 import torch
 
 from ccnet_tpu_torch.losses.cross_entropy import masked_mean, softmax_cross_entropy_ignore
-from ccnet_tpu_torch.losses.lovasz import lovasz_softmax, require_one_rank
+from ccnet_tpu_torch.losses.lovasz import lovasz_softmax
 from ccnet_tpu_torch.losses.ohem import ohem_keep_mask
 from ccnet_tpu_torch.ops.resize import resize_bilinear_align_corners
 from ccnet_tpu_torch.ops.upsampled_ce import (
@@ -89,9 +89,8 @@ def criterion_ohem_dsn(outputs: Dict[str, torch.Tensor], labels: torch.Tensor,
 
 def criterion_ohem_dsn2(outputs: Dict[str, torch.Tensor], labels: torch.Tensor,
                         ignore_label: int = 255) -> torch.Tensor:
-    """CE(main) + Lovász-softmax(main), on the materialised f32 upsample.
-    One process only: raises ``NotImplementedError`` over N ranks."""
-    require_one_rank("criterion_ohem_dsn2 (its Lovász-softmax term)")
+    """CE(main) + Lovász-softmax(main), on the materialised f32 upsample
+    (over N ranks, this rank's share of the global batch's loss)."""
     up = resize_bilinear_align_corners(outputs["main"], labels.shape[1:])
     loss1 = softmax_cross_entropy_ignore(up, labels, ignore_label)
     loss2 = lovasz_softmax(torch.softmax(up, dim=1), labels, ignore_label)

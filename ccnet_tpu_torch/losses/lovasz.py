@@ -23,11 +23,20 @@ ahead of the tail enter the loss, and the sentinels contribute nothing.
 validity mask). Everything is differentiable in the scores through
 ``torch.sort``'s values.
 
-Over N ranks (a live process group) :func:`lovasz_softmax`,
-:func:`lovasz_hinge` and :func:`lovasz_hinge_flat` raise
-``NotImplementedError``: their sort runs over the pixels of the whole
-batch, which no rank holds. :func:`binary_xloss` is a mean and returns this
-rank's share of the global one.
+Over N ranks (a live process group, every rank holding an equal share of
+the global batch, in rank order) each function returns this rank's share
+of the loss of the global batch, as the JAX functions sort the global
+batch's pixels under the mesh; the shares sum to the one-process loss and
+each rank's gradient is its rows of the global gradient (the train step
+back-propagates N × the share, which DDP averages). The sorted losses
+gather every rank's errors and ground truth in rank order (one
+``all_reduce`` of zero-filled slots, :func:`~ccnet_tpu_torch.parallel.mesh.
+rank_gather`, with ignored pixels folded in as the JAX package folds them),
+sort them stably on every rank, and dot this rank's own errors with the
+global Lovász gradient at their sorted positions; ``'present'`` means
+present in the global batch. ``per_image=True`` needs no gather: this
+rank's images' losses over the global image count. :func:`binary_xloss`
+is a mean and returns this rank's share of the global one.
 """
 
 from __future__ import annotations
@@ -36,14 +45,7 @@ import numpy as np
 import torch
 
 from ccnet_tpu_torch.parallel.distributed import world
-from ccnet_tpu_torch.parallel.mesh import all_reduce_sum
-
-
-def require_one_rank(what: str) -> None:
-    """Raise ``NotImplementedError`` for ``what`` inside a group of N > 1 ranks."""
-    if world()[1] > 1:
-        raise NotImplementedError(f"{what} over {world()[1]} ranks is not ported: it sorts "
-                                  "the whole batch's pixels; train it in one process")
+from ccnet_tpu_torch.parallel.mesh import all_reduce_sum, rank_gather
 
 
 def _lovasz_grad(gt_sorted: torch.Tensor) -> torch.Tensor:
@@ -54,6 +56,37 @@ def _lovasz_grad(gt_sorted: torch.Tensor) -> torch.Tensor:
     union = gts + (1.0 - gt_sorted).cumsum(dim=0)
     jaccard = 1.0 - intersection / union.clamp_min(1.0)
     return torch.cat([jaccard[:1], jaccard[1:] - jaccard[:-1]], dim=0)
+
+
+def _global_grad(errors: torch.Tensor, gt: torch.Tensor):
+    """Over N ranks: the Lovász gradient of the global batch at this rank's
+    pixels, along dim 0 of this rank's ``errors`` (their ground truth
+    ``gt``), and the global ground truth. Every rank's errors and ground
+    truth are gathered in rank order and sorted stably in descending
+    order."""
+    rank, n = world()[0], errors.shape[0]
+    both = rank_gather(torch.cat([errors, gt], dim=1))
+    k = errors.shape[1]
+    order = both[:, :k].sort(dim=0, descending=True, stable=True).indices
+    grad = torch.empty_like(order, dtype=errors.dtype).scatter_(
+        0, order, _lovasz_grad(both[:, k:].gather(0, order)))
+    return grad[rank * n:(rank + 1) * n], both[:, k:]
+
+
+def _lovasz_softmax_ranks(probas: torch.Tensor, labels: torch.Tensor,
+                          ignore_label: int) -> torch.Tensor:
+    """This rank's share of the Lovász-softmax of the global batch over N
+    ranks; ignored pixels have error 0 and no class, as in the JAX
+    package, and sort behind every error that counts."""
+    C = probas.shape[1]
+    flat = probas.permute(0, 2, 3, 1).reshape(-1, C)
+    labels = labels.reshape(-1)
+    valid = (labels != ignore_label)[:, None]
+    fg = ((labels[:, None] == torch.arange(C, device=labels.device)) & valid).to(flat.dtype)
+    errors = (fg - flat).abs() * valid
+    grad, fg_all = _global_grad(errors, fg)
+    present = (fg_all.sum(dim=0) > 0).to(flat.dtype)
+    return ((errors * grad).sum(dim=0) * present).sum() / present.sum().clamp_min(1.0)
 
 
 def _lovasz_softmax_flat(probas: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -79,12 +112,14 @@ def lovasz_softmax(probas: torch.Tensor, labels: torch.Tensor, ignore_label: int
     """Lovász-softmax over present classes.
 
     probas ``(B, C, H, W)`` softmax probabilities, labels ``(B, H, W)`` int.
-    One process only."""
-    require_one_rank("lovasz_softmax")
+    Over N ranks, this rank's share of the global batch's loss."""
+    size = world()[1]
     if per_image:
         return torch.stack([
             _lovasz_softmax_flat(*_valid_pixels(p[None], l[None], ignore_label))
-            for p, l in zip(probas, labels)]).mean()
+            for p, l in zip(probas, labels)]).sum() / (probas.shape[0] * size)
+    if size > 1:
+        return _lovasz_softmax_ranks(probas, labels, ignore_label)
     return _lovasz_softmax_flat(*_valid_pixels(probas, labels, ignore_label))
 
 
@@ -102,8 +137,23 @@ def flatten_binary_scores(scores: torch.Tensor, labels: torch.Tensor,
 def lovasz_hinge_flat(logits: torch.Tensor, labels: torch.Tensor,
                       valid: torch.Tensor | None = None) -> torch.Tensor:
     """Binary Lovász hinge on flat ``(P,)`` logits and {0, 1} labels; 0 when
-    no pixel is valid (the reference's empty-image guard). One process only."""
-    require_one_rank("lovasz_hinge_flat")
+    no pixel is valid (the reference's empty-image guard). Over N ranks,
+    this rank's share of the hinge of the global flat arrays (invalid
+    pixels get error −∞, as in the JAX package, and sort to the tail)."""
+    if world()[1] == 1:
+        return _hinge_flat(logits, labels, valid)
+    logits = logits.float()
+    valid = torch.ones_like(logits, dtype=torch.bool) if valid is None else valid
+    gt = labels.float() * valid
+    errors = torch.where(valid, 1.0 - logits * (2.0 * labels.float() - 1.0),
+                         torch.full_like(logits, float("-inf")))
+    grad, _ = _global_grad(errors[:, None], gt[:, None])
+    return (errors.clamp_min(0.0) * grad[:, 0]).sum()
+
+
+def _hinge_flat(logits: torch.Tensor, labels: torch.Tensor,
+                valid: torch.Tensor | None = None) -> torch.Tensor:
+    """:func:`lovasz_hinge_flat` of this rank's pixels alone."""
     logits = logits.float()
     if valid is not None:
         logits, labels = logits[valid], labels[valid]
@@ -116,12 +166,12 @@ def lovasz_hinge_flat(logits: torch.Tensor, labels: torch.Tensor,
 
 def lovasz_hinge(logits: torch.Tensor, labels: torch.Tensor, per_image: bool = True,
                  ignore: int | None = None) -> torch.Tensor:
-    """Binary Lovász hinge over ``(B, H, W)`` logits and {0, 1} labels. One
-    process only."""
-    require_one_rank("lovasz_hinge")
+    """Binary Lovász hinge over ``(B, H, W)`` logits and {0, 1} labels. Over
+    N ranks, this rank's share of the global batch's loss."""
     if per_image:
-        return torch.stack([lovasz_hinge_flat(*flatten_binary_scores(lg, lb, ignore))
-                            for lg, lb in zip(logits, labels)]).mean()
+        return torch.stack([_hinge_flat(*flatten_binary_scores(lg, lb, ignore))
+                            for lg, lb in zip(logits, labels)]).sum() / (
+                                logits.shape[0] * world()[1])
     return lovasz_hinge_flat(*flatten_binary_scores(logits, labels, ignore))
 
 

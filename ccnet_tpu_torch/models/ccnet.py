@@ -25,6 +25,13 @@ nothing is kept for a backward. The JAX package's TPU crossover
 (``_CCA_PALLAS_MIN_AXIS_SUM``) is a v5e measurement and is not carried over.
 Head and DSN dropout (``drop_rate``, elementwise, as flax ``nn.Dropout``)
 acts in train mode only.
+
+In a height-sharded forward (:mod:`~ccnet_tpu_torch.parallel.spatial`) the
+attention gathers q, k and v of every shard (three gathers a call, 3·R an
+image), runs on the whole map and keeps this shard's rows; the route the
+kernels take is then the one process's. ``_ConcatConv`` exchanges the halo
+rows of both its inputs at once; every other padded convolution is a
+:class:`~ccnet_tpu_torch.nn.layers.Conv`.
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ from ccnet_tpu_torch.models.backbone import DilatedResNet
 from ccnet_tpu_torch.nn.layers import ABN, Conv, Dropout
 from ccnet_tpu_torch.ops.cc_attention import criss_cross_attention
 from ccnet_tpu_torch.ops.cc_attention_cuda import criss_cross_attention_cuda
+from ccnet_tpu_torch.parallel import spatial
 
 CCA_IMPLS = ("torch", "kernel", "auto")
 
@@ -62,9 +70,11 @@ class CrissCrossAttention(nn.Module):
         self.gamma = nn.Parameter(torch.zeros(1))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        q = _nhwc(self.query_conv(x))
-        k = _nhwc(self.key_conv(x))
-        v = _nhwc(self.value_conv(x))
+        q, k, v = self.query_conv(x), self.key_conv(x), self.value_conv(x)
+        plan = spatial.current()
+        if plan is not None:  # the attention reads whole columns: every shard's rows
+            q, k, v = plan.gather(q), plan.gather(k), plan.gather(v)
+        q, k, v = _nhwc(q), _nhwc(k), _nhwc(v)
         impl = self.impl
         if impl == "auto":
             impl = "kernel" if x.device.type == "cuda" else "torch"
@@ -74,7 +84,11 @@ class CrissCrossAttention(nn.Module):
             out = criss_cross_attention_cuda(q, k, v)[0]
         else:
             out = criss_cross_attention(q, k, v)
-        return self.gamma.to(x.dtype) * out.permute(0, 3, 1, 2) + x
+        out = out.permute(0, 3, 1, 2)
+        if plan is not None:
+            _, start, end = plan.span(x.shape[2])
+            out = out[:, :, start:end]
+        return self.gamma.to(x.dtype) * out + x
 
 
 class _ConcatConv(nn.Module):
@@ -96,8 +110,13 @@ class _ConcatConv(nn.Module):
         dt = self.compute_dtype
         w = self.weight.to(dt)
         ca = self.in_a
-        return (F.conv2d(a.to(dt), w[:, :ca], padding=1)
-                + F.conv2d(b.to(dt), w[:, ca:], padding=1))
+        a, b, padding = a.to(dt), b.to(dt), 1
+        plan = spatial.current()
+        if plan is not None:
+            a, b = plan.halo([a, b], 3, 1, 1, 1)
+            padding = (0, 1)
+        return (F.conv2d(a, w[:, :ca], padding=padding)
+                + F.conv2d(b, w[:, ca:], padding=padding))
 
 
 class RCCAModule(nn.Module):

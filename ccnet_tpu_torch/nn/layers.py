@@ -4,7 +4,11 @@ Counterpart of :mod:`ccnet_tpu.nn.layers`, NCHW.
 
 * :class:`Conv` keeps f32 parameters (OIHW, torch's default init, which the
   JAX package reproduces) and casts input and weight to the compute
-  ``dtype`` at call time, so a bf16 model keeps f32 master weights.
+  ``dtype`` at call time, so a bf16 model keeps f32 master weights. In a
+  height-sharded forward (:func:`~ccnet_tpu_torch.parallel.spatial.current`)
+  a convolution whose window reads other rows (a kernel taller than one
+  row, or row padding) takes its halo rows from the other shards and runs
+  without row padding.
 * :class:`ABN` is batch norm followed by identity (backbone) or leaky-ReLU
   0.01 (heads, InPlace-ABN's default). In eval mode scale and shift are
   computed in f32 from the running stats, then cast to the input dtype. In
@@ -34,6 +38,9 @@ Counterpart of :mod:`ccnet_tpu.nn.layers`, NCHW.
   moments up to f32 rounding. One value per channel per rank takes the
   same route. A recompute under remat issues the same collectives, in the
   same order, on every rank, and leaves the running stats as they are.
+* A height-sharded forward is inference only: ABN raises in train mode
+  there, so the global-moments branch never runs on a row shard (ABN in
+  eval mode is a per-channel affine map and needs no communication).
 * :class:`Dropout` is ``nn.Dropout`` whose mask, over N ranks, is the
   rank's slice of the mask one process draws for the global batch.
 """
@@ -47,6 +54,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ccnet_tpu_torch.parallel import spatial
 from ccnet_tpu_torch.parallel.distributed import world
 from ccnet_tpu_torch.parallel.mesh import all_reduce_sum, rank_slice
 
@@ -63,7 +71,13 @@ class Conv(nn.Conv2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
         bias = self.bias.to(dt) if self.bias is not None else None
-        return self._conv_forward(x.to(dt), self.weight.to(dt), bias)
+        plan = spatial.current()
+        if plan is None or (self.kernel_size[0] == 1 and self.padding[0] == 0):
+            return self._conv_forward(x.to(dt), self.weight.to(dt), bias)
+        x, = plan.halo([x.to(dt)], self.kernel_size[0], self.dilation[0], self.stride[0],
+                       self.padding[0])
+        return F.conv2d(x, self.weight.to(dt), bias, self.stride, (0, self.padding[1]),
+                        self.dilation, self.groups)
 
 
 _STATE = threading.local()
@@ -97,6 +111,9 @@ class ABN(nn.Module):
         self.register_buffer("running_var", torch.ones(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training and spatial.current() is not None:
+            raise RuntimeError("a height-sharded forward is inference only: put the model "
+                               "in eval mode")
         momentum = 0.0 if getattr(_STATE, "recomputing", False) else self.momentum
         if self.training and world()[1] > 1:
             y = _GlobalBatchNorm.apply(x, self.weight, self.bias, self.running_mean,

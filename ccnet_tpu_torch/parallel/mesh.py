@@ -14,10 +14,19 @@ calls :func:`all_reduce_sum`:
 * :func:`data_parallel` — the model's replicas, their parameters broadcast
   from rank 0 and their gradients averaged
   (``torch.nn.parallel.DistributedDataParallel``);
+* :func:`rank_gather` — every rank's tensor in rank order, where a
+  function reads the whole batch (the Lovász losses' sort);
 * :class:`RankOrder` — a dataset reordered so that one process loads the
   global batches N ranks load, the one-process reference of an N-rank run.
 
-The ``space`` axis (height sharding) is not ported.
+The ``space`` axis: the ranks form a ``(data, space)`` grid, rank ``r`` at
+``(r // space, r % space)`` as ``make_mesh`` reshapes the devices
+(:func:`grid`). ``--whole --space N`` inference splits each image's rows
+over the ranks of a space group (:func:`space_group`,
+:mod:`~ccnet_tpu_torch.parallel.spatial`) and the images over the data
+groups; training folds ``space`` into data parallelism, as the JAX
+package's ``batch_sharding`` puts the batch over ``(data, space)``: the
+batch is sharded over all ranks and nothing else changes.
 """
 
 from __future__ import annotations
@@ -27,6 +36,7 @@ import torch
 import torch.distributed as dist
 
 from ccnet_tpu_torch.parallel.distributed import world
+from ccnet_tpu_torch.parallel.spatial import SpaceGroup
 
 
 def rank_slice(t: torch.Tensor, rank: int, size: int) -> torch.Tensor:
@@ -49,6 +59,40 @@ def all_reduce_sum(t: torch.Tensor) -> torch.Tensor:
     out = t.detach().clone()
     dist.all_reduce(out)
     return out
+
+
+def rank_gather(t: torch.Tensor) -> torch.Tensor:
+    """``t`` of every rank (one shape on all), concatenated along dim 0 in
+    rank order, detached: one ``all_reduce`` of zero-filled slots. ``t``
+    itself, detached, at world size 1."""
+    rank, size = world()
+    if size == 1:
+        return t.detach()
+    buf = t.new_zeros((size, *t.shape))
+    buf[rank] = t.detach()
+    dist.all_reduce(buf)
+    return buf.reshape(size * t.shape[0], *t.shape[1:])
+
+
+def grid(space: int = 1) -> tuple:
+    """``(data index, data count, space index)`` of this rank in the
+    ``(data, space)`` grid of the live group (rank ``r`` at ``(r // space,
+    r % space)``). Raises ValueError where ``space`` does not divide the
+    ranks."""
+    rank, size = world()
+    if space < 1 or size % space:
+        raise ValueError(f"{size} rank(s) not divisible by space={space}")
+    return rank // space, size // space, rank % space
+
+
+def space_group(space: int) -> SpaceGroup:
+    """This rank's :class:`~ccnet_tpu_torch.parallel.spatial.SpaceGroup` of
+    the grid of :func:`grid`: ranks ``[d·space, (d+1)·space)`` for data
+    index ``d``. Every rank creates every group, in the same order, as
+    ``torch.distributed.new_group`` requires."""
+    data, count, index = grid(space)
+    groups = [dist.new_group(list(range(d * space, (d + 1) * space))) for d in range(count)]
+    return SpaceGroup(groups[data], index, space)
 
 
 def data_parallel(model: torch.nn.Module) -> torch.nn.Module:

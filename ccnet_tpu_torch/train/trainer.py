@@ -22,7 +22,11 @@ library (draws seeded per step as in the JAX package) and copies the crops.
 chrome trace under ``snapshot_dir/profile``; ``tensorboard`` writes
 ``train/loss``, ``train/lr`` and ``train/img_per_s`` every ``log_every``
 steps to ``snapshot_dir/tb``. Each of these two warns and goes on where it
-is unavailable. ``space`` > 1 (height sharding) is not ported and raises.
+is unavailable. ``space`` folds into data parallelism, as the JAX package's
+``batch_sharding`` puts the batch over ``(data, space)``: over N ranks it
+must divide N (else ValueError, as ``make_mesh`` raises) and the batch is
+sharded over all N; in one process it is ignored, as JAX's one-device mesh
+is ``None``.
 
 Over N ranks (one process per card under torchrun, the group initialised by
 :func:`~ccnet_tpu_torch.parallel.maybe_initialize_distributed`)
@@ -59,7 +63,7 @@ from ccnet_tpu_torch.data.preprocess import (
 )
 from ccnet_tpu_torch.losses import build_criterion
 from ccnet_tpu_torch.models import build_model
-from ccnet_tpu_torch.parallel import data_parallel, is_primary_host, rank_device, world
+from ccnet_tpu_torch.parallel import data_parallel, grid, is_primary_host, rank_device, world
 from ccnet_tpu_torch.train.state import create_train_state
 from ccnet_tpu_torch.train.step import make_train_step
 from ccnet_tpu_torch.utils import (
@@ -121,9 +125,9 @@ class TrainConfig:
 class Trainer:
     def __init__(self, config: TrainConfig):
         self.cfg = c = config
-        if c.space > 1:
-            raise NotImplementedError("TrainConfig space > 1 is not ported yet")
         self.rank, self.ranks = world()
+        if self.ranks > 1:  # space folds into data parallelism (JAX's batch_sharding)
+            grid(c.space)
         if c.batch_size % self.ranks:
             raise ValueError(f"global batch {c.batch_size} must divide over {self.ranks} ranks")
         if c.augment_backend == "native":

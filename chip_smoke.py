@@ -134,13 +134,29 @@ failure raises and exits non-zero:
     batch within DDP_ABN_RTOL (y, dx, stats): bounds that no update, a
     halved or doubled one, per-rank BN moments and per-rank BN backward
     sums each break (``--ddp-diagnostics``); both runs' s/step (two ranks
-    on one card measure correctness, not scaling);
+    on one card measure correctness, not scaling); in each rank, the
+    Lovász criteria (``criterion_ohem_dsn2`` at the 769² step's logits and
+    ``lovasz_hinge``) on the rank's share of a seeded global batch: the
+    shares' losses sum to one process's on the global batch within
+    LOVASZ_LOSS_RTOL and each rank's grads are its rows of one process's
+    within LOVASZ_GRAD_TOL;
 22. one rank under torchrun over NCCL, 2 steps, against the same 2 steps
     without torchrun, twice: no further from the first plain run than the
     second plain run is;
 23. two ranks of sliding ``cli.evaluate.main`` over 4 synthetic 1024×2048
     images: the summed confusion equals one process's integer for integer,
-    rank 0 alone writes ``result.txt``.
+    rank 0 alone writes ``result.txt``;
+24. height-sharded whole-image inference: two ranks of ``cli.evaluate
+    --whole 1 --space 2`` (gloo, one card) on the ``.pth`` of 8 (CCNet R101
+    R=2 bf16, two 1024×2048 images, then MS+flip on one) and on seeded
+    random PSPNet and DeepLabv3 R50 (one image each), each rank running the
+    network on its rows of every image (halo-exchanged convolutions, the
+    attention's q, k, v gathered: K7a on the whole map), against one
+    process's ``--whole 1``: confusion totals equal, each rank's K7a
+    launches equal one process's, and the library's sharded logits of the
+    first image within MODEL_TOL × scale of one process's, argmax agreement
+    >= MODEL_ARGMAX; per rank s/img, peak memory, the collectives' calls
+    and bytes, K7a's launches.
     A rank that fails or outlasts DDP_TIMEOUT fails the run; the launcher
     and its ranks run in a session of their own and are killed with it.
 
@@ -153,7 +169,7 @@ TFLOP/s bf16 tensor cores, 67 TFLOP/s f32). Timed calls cycle through
 copies of their inputs that hold 4x the L2 cache between them, so every
 time reads its inputs from HBM as the bound assumes. It prints one JSON
 line of per-kernel results (launches summed over the main paths that run
-each kernel, 15 and 16 included; K5/K6 also carry their VOC row,
+each kernel, 15, 16 and 24's ranks included; K5/K6 also carry their VOC row,
 ``voc_321``), then, as the last line, ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --profile
@@ -1812,11 +1828,12 @@ def _top_kernels(fn, top: int = 6) -> str:
                or "none"))
 
 
-def random_pth(name: str, pth: str) -> None:
-    """R101 bf16 ``name`` with seeded random weights (``randomize_``), saved."""
+def random_pth(name: str, pth: str, depth: int = DEPTH) -> None:
+    """R101 (or ``depth``) bf16 ``name`` with seeded random weights
+    (``randomize_``), saved."""
     from ccnet_tpu_torch.models import build_model, randomize_
 
-    model = build_model(name, num_classes=19, depth=DEPTH, dtype=torch.bfloat16)
+    model = build_model(name, num_classes=19, depth=depth, dtype=torch.bfloat16)
     randomize_(model, seed=0)
     torch.save(model.state_dict(), pth)
 
@@ -2650,15 +2667,86 @@ def _abn_rank_check() -> dict:
             "stats": max(rel(layer.running_mean, mean), rel(layer.running_var - 1, var - 1))}
 
 
+# the Lovász criteria over the ranks (phase 21): each rank's share of the
+# seeded global inputs against one process on the global batch, f32 on the
+# card. The shares sum in another order (loss) and ties among equal errors
+# may sort apart (grads): LOVASZ_LOSS_RTOL relative, LOVASZ_GRAD_TOL x max |grad|.
+LOVASZ_LOSS_RTOL, LOVASZ_GRAD_TOL = 1e-5, 1e-4
+
+
+def _lovasz_inputs() -> tuple:
+    """Seeded global inputs on the card: the 769² step's main logits
+    (TRAIN_BATCH, 19, 97, 97), labels at 769² (10 % ignored; class 17 only
+    in the second half of the batch, class 18 nowhere), and binary logits
+    and labels at (TRAIN_BATCH, 97, 97) for the hinge."""
+    g = torch.Generator(device="cuda").manual_seed(11)
+    B, f = TRAIN_BATCH, _features(CROP)
+    main = torch.randn((B, 19, f, f), generator=g, device="cuda") * 2.0
+    labels = torch.randint(0, 18, (B, CROP, CROP), generator=g, device="cuda")
+    labels[:B // 2][labels[:B // 2] == 17] = 0
+    labels[torch.rand(labels.shape, generator=g, device="cuda") < 0.1] = 255
+    hinge = torch.randn((B, f, f), generator=g, device="cuda")
+    binary = torch.randint(0, 2, (B, f, f), generator=g, device="cuda")
+    binary[torch.rand(binary.shape, generator=g, device="cuda") < 0.1] = 255
+    return main, labels, hinge, binary
+
+
+def _lovasz_losses(main, labels, hinge, binary) -> dict:
+    """``criterion_ohem_dsn2`` (CE + Lovász-softmax at 769²) and
+    ``lovasz_hinge`` (``per_image=False``): name -> (loss, grad of its
+    logits); over N ranks, the rank's shares."""
+    from ccnet_tpu_torch.losses import criterion_ohem_dsn2
+    from ccnet_tpu_torch.losses.lovasz import lovasz_hinge
+
+    m, x = main.clone().requires_grad_(True), hinge.clone().requires_grad_(True)
+    dsn2 = criterion_ohem_dsn2({"main": m, "aux": main}, labels)
+    hinge_loss = lovasz_hinge(x, binary, per_image=False, ignore=255)
+    return {"criterion_ohem_dsn2": (float(dsn2.detach()), torch.autograd.grad(dsn2, m)[0]),
+            "lovasz_hinge": (float(hinge_loss.detach()), torch.autograd.grad(hinge_loss, x)[0])}
+
+
+def _lovasz_rank_check(out: str) -> dict:
+    """In a rank: :func:`_lovasz_losses` on the rank's share of
+    :func:`_lovasz_inputs`; the loss shares, the grads to
+    ``OUT/lovasz_r<rank>.pt``."""
+    from ccnet_tpu_torch.parallel import rank_slice, world
+
+    rank, size = world()
+    got = _lovasz_losses(*(rank_slice(t, rank, size) for t in _lovasz_inputs()))
+    torch.save({k: g.cpu() for k, (_, g) in got.items()}, os.path.join(out, f"lovasz_r{rank}.pt"))
+    return {k: loss for k, (loss, _) in got.items()}
+
+
+def _lovasz_readings(ranks: list, out: str) -> dict:
+    """The ranks' Lovász shares against one process on the global batch:
+    per criterion the summed loss, its relative difference and the max abs
+    grad difference over max |grad|."""
+    want = _lovasz_losses(*_lovasz_inputs())
+    grads = [torch.load(os.path.join(out, f"lovasz_r{r['rank']}.pt")) for r in ranks]
+    got = {}
+    for name, (loss, grad) in want.items():
+        total = sum(r["lovasz"][name] for r in ranks)
+        mine = torch.cat([g[name] for g in grads]).cuda()
+        got[name] = {"loss": total, "one": loss, "loss_rel": abs(total - loss) / abs(loss),
+                     "grad": ((mine - grad).abs().max() / grad.abs().max()).item()}
+    return got
+
+
 def rank_main(argv) -> None:
     """One rank under torchrun: ``--rank-main train|train+FAULT|evaluate
     OUT -- ARGV`` runs ``cli.train.main(ARGV)`` (with :func:`_plant`'s
-    FAULT) or ``cli.evaluate.main(ARGV)`` (on DDP_EVAL_IMAGES synthetic
-    images of EVAL_HW, into ``OUT/eval_r<rank>``) and writes its launch
-    counts and result to ``OUT/rank<rank>.json``."""
+    FAULT; then :func:`_abn_rank_check` and :func:`_lovasz_rank_check`) or
+    ``cli.evaluate.main(ARGV)`` (on DDP_EVAL_IMAGES synthetic images of
+    EVAL_HW, into ``OUT/eval_r<rank>``) and writes its launch counts and
+    result to ``OUT/rank<rank>.json``; ``--rank-main space OUT -- PTH...``
+    runs :func:`_space_rank` on the weights of SPACE_JOBS."""
     what, out, cli_argv = argv[0], argv[1], argv[3:]
     rank = int(os.environ["RANK"])
     _reset_counts()
+    if what == "space":
+        with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+            json.dump(_space_rank(out, cli_argv), f)
+        return
     if what.startswith("train"):
         from ccnet_tpu_torch.cli.train import main as cli_main
         from ccnet_tpu_torch.parallel import maybe_initialize_distributed
@@ -2668,6 +2756,7 @@ def rank_main(argv) -> None:
             _plant(what.split("+")[1])
         result = cli_main(cli_argv)
         result["abn"] = _abn_rank_check()
+        result["lovasz"] = _lovasz_rank_check(out)
     else:
         from ccnet_tpu_torch.cli.evaluate import main as cli_main
         from ccnet_tpu_torch.data import SyntheticDataset
@@ -2679,7 +2768,7 @@ def rank_main(argv) -> None:
     with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
         json.dump({"rank": rank, "world": world()[1], "launches": _counts(), **{
             k: result[k] for k in ("losses", "step_seconds", "wall_seconds", "confusion",
-                                   "batch_seconds", "abn") if k in result}}, f)
+                                   "batch_seconds", "abn", "lovasz") if k in result}}, f)
 
 
 def _ranks(out: str, n: int) -> list:
@@ -2754,6 +2843,7 @@ def _ddp_readings(out: str, snap: str, one: dict, pth: str) -> dict:
     return {"ranks": ranks, "losses": ranks[0]["losses"],
             "loss": max(abs(x - y) / abs(y) for x, y in zip(ranks[0]["losses"], one["losses"])),
             "abn": {k: max(r["abn"][k] for r in ranks) for k in ranks[0]["abn"]},
+            "lovasz": _lovasz_readings(ranks, out),
             "first": _weights_diff(pth_of(snap, 1), pth_of(one["snap"], 1), pth),
             "last": _weights_diff(pth_of(snap, DDP_STEPS), pth_of(one["snap"], DDP_STEPS), pth)}
 
@@ -2784,12 +2874,18 @@ def _ddp_line(tag: str, got: dict) -> str:
             f"{abn['dx']:.3e}, stats {abn['stats']:.3e} (tol {DDP_ABN_RTOL:g}); not held: the "
             f"first step's change rel {f['change']:.3e} (worst tensor {f['worst'][1]} "
             f"{f['worst'][0]:.3e}), max abs {f['abs']:.3e}; after step {DDP_STEPS}: change rel "
-            f"{last['change']:.3e}, stats rel {last['stats']:.3e}, max abs {last['abs']:.3e}")
+            f"{last['change']:.3e}, stats rel {last['stats']:.3e}, max abs {last['abs']:.3e}; "
+            "Lovász over the ranks against one process on the global batch: " + "; ".join(
+                f"{k} loss {v['loss']:.6f} / {v['one']:.6f} rel {v['loss_rel']:.2e} (tol "
+                f"{LOVASZ_LOSS_RTOL:g}), grad {v['grad']:.2e} x max (tol {LOVASZ_GRAD_TOL:g})"
+                for k, v in got["lovasz"].items()))
 
 
 def _ddp_fails(got: dict) -> bool:
     return (got["loss"] > DDP_LOSS_RTOL or got["first"]["stats"] > DDP_STATS_RTOL
-            or max(got["abn"].values()) > DDP_ABN_RTOL)
+            or max(got["abn"].values()) > DDP_ABN_RTOL
+            or any(v["loss_rel"] > LOVASZ_LOSS_RTOL or v["grad"] > LOVASZ_GRAD_TOL
+                   for v in got["lovasz"].values()))
 
 
 def phase_ddp_train(pth: str, tmp: str, smi: str) -> None:
@@ -2974,6 +3070,154 @@ def phase_ddp_eval(pth: str, tmp: str) -> None:
             for r in ranks) + "; one process " + " ".join(f"{v:.4f}" for v in one["batch_seconds"]))
 
 
+# ----------------------------------------------------------------------------
+# Height-sharded whole-image inference: --whole 1 --space 2 over two ranks.
+SPACE_RANKS = 2
+# (tag, model, depth, synthetic EVAL_HW images, cli.evaluate flags); the
+# heads at depth 50 keep the whole script within its time
+SPACE_JOBS = [("whole", "ccnet", DEPTH, 2, ["--whole", "1"]),
+              ("msflip", "ccnet", DEPTH, 1, ["--whole", "1", "--scales",
+                                             ",".join(map(str, MS_SCALES)), "--flip", "1"]),
+              ("pspnet", "pspnet", 50, 1, ["--whole", "1"]),
+              ("deeplabv3", "deeplabv3", 50, 1, ["--whole", "1"])]
+SPACE_K7A = ("cca_line_fwd", "cca_line_fwd_tc")
+
+
+def _space_job(job, pth: str, out: str, space: bool, models: dict) -> dict:
+    """One of SPACE_JOBS in this process: ``cli.evaluate.main`` (with
+    ``--space SPACE_RANKS`` in a rank) on its synthetic images, its launch
+    counts and peak memory; then the library's ``predict_multiscale``
+    (``whole=True``, over a space group in a rank) of the first image, whose
+    logits (a rank: its rows) go to ``out/<tag>_<rank or one>.pt``."""
+    from ccnet_tpu_torch.cli.evaluate import main
+    from ccnet_tpu_torch.data import CITYSCAPES_MEAN_BGR, SyntheticDataset
+    from ccnet_tpu_torch.evaluation import predict_multiscale
+    from ccnet_tpu_torch.models import build_model
+    from ccnet_tpu_torch.parallel import space_group, world
+    from ccnet_tpu_torch.utils import load_pth
+
+    tag, name, depth, n, flags = job
+    rank = world()[0] if space else "one"
+    ds = SyntheticDataset(n=n, hw=EVAL_HW, num_classes=19)
+    argv = ["--model", name, "--depth", str(depth), "--restore-from", pth, "--device", "cuda",
+            "--save-preds", "0", "--input-size", f"{CROP},{CROP}", "--num-workers", "2",
+            "--output-dir", os.path.join(out, f"{tag}_{rank}")] + flags
+    torch.cuda.empty_cache()
+    _reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    result = main(argv + (["--space", str(SPACE_RANKS)] if space else []), dataset=ds)
+    got = {k: result[k] for k in ("confusion", "batch_seconds", "wall_seconds", "collectives")
+           if k in result}
+    got.update(launches=_counts(), peak=torch.cuda.max_memory_allocated())
+    if (name, depth) not in models:
+        model = build_model(name, num_classes=19, depth=depth, dtype=torch.bfloat16,
+                            device="cuda")
+        load_pth(pth, model)
+        models[(name, depth)] = model.eval()
+    model = models[(name, depth)]
+    group = space_group(SPACE_RANKS) if space else None
+    mean = torch.tensor(CITYSCAPES_MEAN_BGR, device="cuda")
+    x = (torch.from_numpy(np.asarray(ds[0][0])).cuda().float() - mean).permute(2, 0, 1)[None]
+    scales = [float(v) for v in flags[flags.index("--scales") + 1].split(",")] \
+        if "--scales" in flags else [1.0]
+    with torch.inference_mode():
+        logits = predict_multiscale(lambda t: model(t)["main"], x, (CROP, CROP), 19,
+                                    scales=scales, flip="--flip" in flags, whole=True,
+                                    space=group)
+    got["span"] = group.rows(EVAL_HW[0]) if space else (0, EVAL_HW[0])
+    got["logits"] = os.path.join(out, f"{tag}_{rank}.pt")
+    torch.save(logits.cpu(), got["logits"])
+    return got
+
+
+def _space_rank(out: str, pths) -> dict:
+    """In a rank: every job of SPACE_JOBS with the weights ``pths``."""
+    from ccnet_tpu_torch.parallel import maybe_initialize_distributed, world
+
+    maybe_initialize_distributed(device="cuda")
+    models = {}
+    jobs = {job[0]: _space_job(job, pth, out, True, models) for job, pth in zip(SPACE_JOBS, pths)}
+    return {"rank": world()[0], "world": world()[1], "jobs": jobs}
+
+
+def _space_s_img(r: dict) -> str:
+    secs = r["batch_seconds"]
+    return f"{secs[-1]:.4f} s/img (image {len(secs)} of {len(secs)})"
+
+
+def phase_space_eval(ccnet_pth: str, tmp: str, smi: str) -> dict:
+    """Two ranks of ``cli.evaluate --whole 1 --space 2`` under torchrun
+    (gloo, one card), each image's height split over the ranks, against one
+    process's ``--whole 1`` on the same ``.pth`` and images (SPACE_JOBS:
+    CCNet R101 R=2 bf16 on two 1024×2048 images and MS+flip on one, PSPNet
+    and DeepLabv3 R50 on one): the summed confusion totals equal, each
+    rank's K7a launches equal one process's (the attention runs on the
+    gathered map), and the library's sharded logits of the first image,
+    the ranks' rows together, within MODEL_TOL × scale of one process's with
+    argmax agreement >= MODEL_ARGMAX. Prints per rank s/img, peak memory,
+    the collectives (calls and bytes) and K7a's launches; returns K7a's
+    launches summed over the ranks."""
+    out = os.path.join(tmp, "space_eval")
+    os.makedirs(out)
+    pths = []
+    for _, name, depth, _, _ in SPACE_JOBS:
+        pth = ccnet_pth if name == "ccnet" else os.path.join(out, f"{name}_r{depth}.pth")
+        if not os.path.isfile(pth):
+            random_pth(name, pth, depth)
+        pths.append(pth)
+    torch.cuda.empty_cache()
+    _torchrun(SPACE_RANKS, ["space", out, "--"] + pths, os.path.join(out, "torchrun.log"))
+    ranks = _ranks(out, SPACE_RANKS)
+    models, failed, k7a = {}, [], {n: 0 for n in SPACE_K7A}
+    for job, pth in zip(SPACE_JOBS, pths):
+        tag, name, depth, n, flags = job
+        one = _space_job(job, pth, out, False, models)
+        want = torch.load(one["logits"])
+        rows = [torch.load(r["jobs"][tag]["logits"]) for r in ranks]
+        spans = [r["jobs"][tag]["span"] for r in ranks]
+        got = torch.cat(rows, dim=2)
+        err, scale = _err(got, want)
+        agree = (got.argmax(1) == want.argmax(1)).float().mean().item()
+        total = int(np.asarray(one["confusion"]).sum())
+        totals = [int(np.asarray(r["jobs"][tag]["confusion"]).sum()) for r in ranks]
+        entries = [int((np.asarray(r["jobs"][tag]["confusion"])
+                        != np.asarray(one["confusion"])).sum()) for r in ranks]
+        log(f"[space-eval] {tag}: cli.evaluate {name} R{depth} bf16 {' '.join(flags)} --space "
+            f"{SPACE_RANKS}, {n} synthetic {EVAL_HW[0]}x{EVAL_HW[1]} image(s), {SPACE_RANKS} ranks "
+            f"(torchrun, gloo, one card; rows {spans}) against one process: confusion totals "
+            f"{totals} / {total} ({entries} entries differ); first image's logits, the ranks' "
+            f"rows against one process: max abs err {err:.3e} (scale {scale:.3g}, tol "
+            f"{MODEL_TOL:g} x scale), argmax agreement {agree:.6f} (>= {MODEL_ARGMAX}); one "
+            f"process {_space_s_img(one)}, peak {one['peak'] / 2**30:.2f} GiB, K7a "
+            f"{[one['launches'][k] for k in SPACE_K7A]}")
+        for r in ranks:
+            j = r["jobs"][tag]
+            c = j["collectives"]
+            log(f"[space-eval] {tag} rank {r['rank']}: {_space_s_img(j)} on the card (CUDA "
+                f"events; one process {_space_s_img(one)}), host wall median "
+                f"{np.median(j['wall_seconds']):.4f} s/img; peak {j['peak'] / 2**30:.2f} GiB "
+                f"(one process {one['peak'] / 2**30:.2f}); collectives (calls, MB): " + ", ".join(
+                    f"{k} {v[0]} {v[1] / 1e6:.3f}" for k, v in c.items())
+                + f"; K7a launches {[j['launches'][k] for k in SPACE_K7A]} (cca_line_fwd, on "
+                "tensor cores)")
+            for k in SPACE_K7A:
+                k7a[k] += j["launches"][k]
+            if j["launches"] != one["launches"]:
+                failed.append(f"{tag} rank {r['rank']} launches {j['launches']}, one process "
+                              f"{one['launches']}")
+        if not err <= MODEL_TOL * scale or agree < MODEL_ARGMAX or set(totals) != {total}:
+            failed.append(f"{tag}: the ranks disagree with one process")
+        for path in [one["logits"]] + [r["jobs"][tag]["logits"] for r in ranks]:
+            os.remove(path)
+    log(f"[space-eval] {smi}. Two ranks sharing one card measure correctness and the cost of "
+        "the collectives, not scaling.")
+    del models
+    torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError("space-eval: " + "; ".join(failed))
+    return k7a
+
+
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
@@ -3050,6 +3294,8 @@ def main(argv=None) -> None:
         phase_ddp_train(ccnet_pth, tmp, smi)
         phase_ddp_nccl_one_rank(ccnet_pth, tmp)
         phase_ddp_eval(trained_769, tmp)
+        # height-sharded whole-image inference: two ranks on the one card
+        space_k7a = phase_space_eval(ccnet_pth, tmp, smi)
     # each kernel's launches in the main paths that run it: K1–K6 in the 769²
     # cli.train run (K1/K2 plus the sliding evaluation's, K5/K6 plus
     # full-frame, PSPNet's and DeepLabv3's cli.train), K7a in the --whole and
@@ -3059,8 +3305,8 @@ def main(argv=None) -> None:
         launches[name] += sliding[name]
     for name in ("upsampled_nll_fwd", "upsampled_nll_bwd"):
         launches[name] += full_frame[name] + sum(head[name] for head in heads)
-    for name in ("cca_line_fwd", "cca_line_fwd_tc"):
-        launches[name] = whole[name] + msflip[name] + full_frame[name]
+    for name in ("cca_line_fwd", "cca_line_fwd_tc"):  # and the --space 2 ranks' (phase 24)
+        launches[name] = whole[name] + msflip[name] + full_frame[name] + space_k7a[name]
     for name in ("cca_line_bwd", "cca_line_bwd_tc"):
         launches[name] = full_frame[name]
     # the VOC training (K1–K6 at 41x41, K5/K6 at 21 classes) and cli.predict

@@ -10,6 +10,10 @@ port's model side.
 from __future__ import annotations
 
 import contextlib
+import os
+import pathlib
+import subprocess
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -100,3 +104,35 @@ def torch_threads(n: int):
         yield
     finally:
         torch.set_num_threads(before)
+
+
+@contextlib.contextmanager
+def gloo_ranks(worker: str, case_dir, ranks: int = 2, timeout: float = 240.0):
+    """Run ``tests/<worker> <case_dir>`` as ``ranks`` gloo ranks on the CPU
+    (torchrun's variables, one thread each), while the body computes the
+    references; on leaving, wait up to ``timeout`` seconds, kill a rank
+    that is still running, and fail with a rank's log when it did not exit
+    0. Yields the processes."""
+    script = pathlib.Path(__file__).resolve().parent / worker
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("MASTER_ADDR", "MASTER_PORT", "CCNET_TPU_NO_DISTRIBUTED")}
+    procs = []
+    try:
+        for rank in range(ranks):
+            env_r = dict(env, RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE=str(ranks),
+                         LOCAL_WORLD_SIZE=str(ranks), OMP_NUM_THREADS="1")
+            log = open(pathlib.Path(case_dir) / f"rank{rank}.log", "w")
+            procs.append((subprocess.Popen([sys.executable, str(script), str(case_dir)],
+                                           env=env_r, stdout=log, stderr=subprocess.STDOUT),
+                          log))
+        yield [p for p, _ in procs]
+        for proc, _ in procs:
+            proc.wait(timeout=timeout)
+    finally:
+        for proc, log in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+    for rank, (proc, _) in enumerate(procs):
+        assert proc.returncode == 0, (pathlib.Path(case_dir) / f"rank{rank}.log").read_text()[-4000:]

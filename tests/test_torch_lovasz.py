@@ -5,6 +5,15 @@ pixels folded in as sentinels that sort to the tail) and
 :mod:`ccnet_tpu_torch.losses.lovasz` (ignored pixels gathered out), in f32:
 values within 1e-5 relative, grads within 1e-5 x max|grad|. Probabilities
 and logits are NHWC on the JAX side and NCHW on the port's.
+
+Over two gloo ranks (``tests/_torch_space_worker.py``, spawned once for the
+module, each with half of a global batch of 4 images): each criterion's
+shares of the loss sum to JAX's loss of the global batch (1e-6 relative)
+and to the port's one process (1e-6 relative), and each rank's gradient is
+its half of JAX's (1e-5 x max|grad|): ``lovasz_softmax`` with ``per_image``
+False and True (a class present only in rank 1's half), ``lovasz_hinge``
+with ``per_image`` True and False, ``lovasz_hinge_flat`` and
+``criterion_ohem_dsn2``.
 """
 
 import jax
@@ -19,7 +28,7 @@ from ccnet_tpu.losses import lovasz as J
 from ccnet_tpu_torch.losses import build_criterion, criterion_ohem_dsn2
 from ccnet_tpu_torch.losses import lovasz as L
 
-from _torch_port import nchw
+from _torch_port import gloo_ranks, nchw, torch_threads
 
 
 def _probas(seed, B=2, H=9, W=11, C=5, ignore_frac=0.2):
@@ -135,3 +144,77 @@ def test_criterion_ohem_dsn2_and_grad_match_jax():
         _rel(got.detach(), want)
         _grad_close(got_g.permute(0, 2, 3, 1).numpy(), want_g)
         assert aux_g is None
+
+
+RANKS = 2
+
+
+def _global_cases():
+    """name -> (worker function, port input, labels, kwargs, JAX loss of the
+    global batch as a function of the NHWC / flat input)."""
+    probas, labels = _probas(7, B=4, H=6, W=7, C=5)
+    labels[:2][labels[:2] == 3] = 0  # class 3 only in rank 1's half; class 4 nowhere
+    logits, blabels = _binary(8, B=4, H=6, W=7)
+    rng = np.random.RandomState(9)
+    main = rng.randn(4, 7, 7, 6).astype(np.float32)
+    dlabels = rng.randint(0, 6, (4, 25, 25)).astype(np.int32)
+    dlabels[rng.rand(4, 25, 25) < 0.1] = 255
+    aux = jnp.zeros_like(main)
+    jl = {k: jnp.asarray(v) for k, v in (("p", labels), ("b", blabels), ("d", dlabels))}
+    return {
+        "softmax": ("softmax", nchw(probas), labels, {"per_image": False}, probas,
+                    lambda p: J.lovasz_softmax(p, jl["p"], 255, False)),
+        "softmax_per_image": ("softmax", nchw(probas), labels, {"per_image": True}, probas,
+                              lambda p: J.lovasz_softmax(p, jl["p"], 255, True)),
+        "hinge_per_image": ("hinge", torch.from_numpy(logits), blabels,
+                            {"per_image": True, "ignore": 255}, logits,
+                            lambda x: J.lovasz_hinge(x, jl["b"], True, 255)),
+        "hinge": ("hinge", torch.from_numpy(logits), blabels, {"per_image": False, "ignore": 255},
+                  logits, lambda x: J.lovasz_hinge(x, jl["b"], False, 255)),
+        "hinge_flat": ("hinge_flat", torch.from_numpy(logits.ravel()), blabels.ravel(), {},
+                       logits.ravel(), lambda x: J.lovasz_hinge_flat(
+                           x, jl["b"].ravel(), jl["b"].ravel() != 255)),
+        "dsn2": ("dsn2", nchw(main), dlabels, {}, main,
+                 lambda m: jcrit.criterion_ohem_dsn2({"main": m, "aux": aux}, jl["d"])),
+    }
+
+
+@pytest.fixture(scope="module")
+def two_ranks(tmp_path_factory):
+    case_dir = tmp_path_factory.mktemp("lovasz_ranks")
+    cases = _global_cases()
+    torch.save({"layers": (1, 1, 1, 1), "lovasz": {
+        name: (fn, x, torch.from_numpy(y), kw) for name, (fn, x, y, kw, _, _) in cases.items()}},
+        case_dir / "case.pt")
+    want = {}
+    with gloo_ranks("_torch_space_worker.py", case_dir, RANKS), torch_threads(1):
+        for name, (_, x, y, kw, jx, jfn) in cases.items():
+            loss, grad = jax.value_and_grad(jfn)(jnp.asarray(jx))
+            one = _one_process(name, x, torch.from_numpy(y), kw)
+            want[name] = {"loss": float(loss), "grad": np.asarray(grad), "one": one}
+    got = [torch.load(case_dir / f"rank{r}.pt", weights_only=False)["lovasz"]
+           for r in range(RANKS)]
+    return want, got
+
+
+def _one_process(name, x, y, kw):
+    if name == "dsn2":
+        return float(criterion_ohem_dsn2({"main": x, "aux": x}, y))
+    if name == "hinge_flat":
+        return float(L.lovasz_hinge_flat(x, y, y != 255))
+    fn = L.lovasz_softmax if name.startswith("softmax") else L.lovasz_hinge
+    return float(fn(x, y, 255, **kw) if fn is L.lovasz_softmax else fn(x, y, **kw))
+
+
+@pytest.mark.parametrize("name", ["softmax", "softmax_per_image", "hinge_per_image", "hinge",
+                                  "hinge_flat", "dsn2"])
+def test_lovasz_over_two_ranks_equals_jax_on_the_global_batch(two_ranks, name):
+    want, got = two_ranks
+    w = want[name]
+    total = sum(r[name]["loss"] for r in got)
+    np.testing.assert_allclose(total, w["loss"], rtol=1e-6)
+    np.testing.assert_allclose(total, w["one"], rtol=1e-6)
+    grads = [r[name]["grad"] for r in got]
+    if name in ("softmax", "softmax_per_image", "dsn2"):  # NCHW shares of the NHWC batch
+        grads = [g.permute(0, 2, 3, 1) for g in grads]
+    _grad_close(torch.cat(grads).numpy(), w["grad"])

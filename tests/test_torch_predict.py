@@ -92,10 +92,15 @@ def test_predict_cli_equals_jax(tree, tiny_depth, tmp_path, mode):
 
 
 def test_predict_cli_unported_flags_raise(tree, tmp_path):
+    """``--space 2`` exits in one process (it must divide the ranks) and
+    without ``--whole``, as the JAX CLI does; over two ranks it splits
+    each image's height (``tests/test_torch_space.py``)."""
     base = ["--restore-from", str(tree / "tiny.pth"), "--device", "cpu",
             "--output-dir", str(tmp_path)]
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(SystemExit, match="must divide the 1 rank"):
         main(base + ["--whole", "1", "--space", "2"])
+    with pytest.raises(SystemExit, match="--whole inference only"):
+        main(base + ["--space", "2"])
 
 
 def test_predict_cli_cuda_without_cuda_raises(tree, tmp_path, monkeypatch):

@@ -8,7 +8,10 @@
 * ``profile_steps`` writes a chrome trace, ``tensorboard`` an event file;
 * ``cli.evaluate --restore-dir`` on ``cli.train``'s snapshots gives the
   confusion matrix of ``--restore-from`` the ``.pth`` of the same step;
-* ``cli.train --augment-backend native`` and ``cli.train --dataset voc``.
+* ``cli.train --augment-backend native`` and ``cli.train --dataset voc``;
+* ``space``: in one process ``TrainConfig(space=2)`` takes the ``space=1``
+  steps (JAX's one-device mesh is ``None``), and a ``space`` that does not
+  divide the ranks raises (over two ranks: ``tests/test_torch_space.py``).
 """
 
 import json
@@ -285,6 +288,30 @@ def test_cli_train_voc(small_depth, tmp_path):
     load_pth(str(tmp_path / "snap" / "CS_scenes_2.pth"), model, strict=True)
 
 
-def test_space_still_raises():
-    with pytest.raises(NotImplementedError):
-        Trainer(TrainConfig(space=2, device="cpu"))
+def test_space_still_raises(monkeypatch):
+    """A ``space`` that does not divide the ranks raises, as ``make_mesh``
+    does (three ranks, as ``world()`` reports them)."""
+    import ccnet_tpu_torch.parallel.mesh as mesh
+    import ccnet_tpu_torch.train.trainer as trainer
+
+    for module in (mesh, trainer):
+        monkeypatch.setattr(module, "world", lambda: (0, 3))
+    with pytest.raises(ValueError, match="space=2"):
+        Trainer(TrainConfig(space=2, device="cpu", batch_size=3))
+
+
+def test_space_in_one_process_takes_the_space_1_steps(small_depth, tmp_path):
+    from ccnet_tpu_torch.data import DataLoader
+
+    results = []
+    for space in (1, 2):
+        trainer = Trainer(TrainConfig(space=space, device="cpu", depth=50, num_classes=5,
+                                      input_size=(33, 33), batch_size=2, num_steps=2,
+                                      save_every=100, bf16=False, export_pth=False,
+                                      snapshot_dir=str(tmp_path / f"snap{space}")))
+        result = trainer.run(DataLoader(SyntheticDataset(n=4, hw=(40, 50), num_classes=5), 2,
+                                        num_workers=1))
+        results.append((result["losses"], trainer.state.model.state_dict()))
+    assert results[0][0] == results[1][0]
+    for key, value in results[0][1].items():
+        assert torch.equal(value, results[1][1][key]), key
