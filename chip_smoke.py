@@ -158,7 +158,30 @@ failure raises and exits non-zero:
     >= MODEL_ARGMAX; per rank s/img, peak memory, the collectives' calls
     and bytes, K7a's launches.
     A rank that fails or outlasts DDP_TIMEOUT fails the run; the launcher
-    and its ranks run in a session of their own and are killed with it.
+    and its ranks run in a session of their own and are killed with it;
+25. the flagship learnability run, ``scripts/e2e_synthetic_torch.py``'s
+    ``run``: CCNet R101 R=2 bf16 with OHEM (``ohem_keep`` 30000), device
+    augmentation, batch 8 of 353² crops of 512×1024 ``LearnableDS`` images
+    (each 64-pixel block one class, drawn as its colour plus noise), 300
+    steps at lr 5e-3; the exported ``.pth`` scores 2 held-out images
+    through the sliding ``Evaluator`` (bf16, K1/K2) and through the
+    independent reference replica (``tests/_torch_reference_replica.py``,
+    f32, plain attention): 300 finite losses, K1–K6's launches, held-out
+    meanIU > 0.5 through both (else the plain route's run is raised beside
+    it); the argmax agreement, the trained ``gamma``, card and host wall
+    s/step and peak memory printed;
+26. remat at scale, ``scripts/remat_scale_torch.py`` in a child process
+    per batch and mode (CCNet R101 R=2 bf16 OHEM, random 769² batches, 2
+    warm and 6 timed steps): at batch 16 every mode runs; at the batch
+    that this card's bs-16 peaks per crop put 10 % past the free memory
+    without remat and 10 % under it with remat (``True``), no remat runs
+    out of memory and remat runs; s/step, crops/s and peak memory each;
+27. whole-image batches, ``scripts/probe_whole_batch_torch.py``: CCNet
+    R101 R=2 bf16 (seeded, ``gamma`` = 0.5) forward + ``predict_whole`` +
+    argmax at B = 1, 2 and 4 over four 1024×2048 images (K7a at 129×257):
+    each B fits, B = 2 and 4 give each image B = 1's argmax on at least
+    99.9 % of its pixels; ms/batch and ms/img per B.
+Each of 25–27 prints its seconds.
 
 Every kernel's time stands beside its bound: the larger of the bytes the
 function must move (each input read once, each output written once,
@@ -169,7 +192,7 @@ TFLOP/s bf16 tensor cores, 67 TFLOP/s f32). Timed calls cycle through
 copies of their inputs that hold 4x the L2 cache between them, so every
 time reads its inputs from HBM as the bound assumes. It prints one JSON
 line of per-kernel results (launches summed over the main paths that run
-each kernel, 15, 16 and 24's ranks included; K5/K6 also carry their VOC row,
+each kernel, 15, 16, 24's ranks and 25–27 included; K5/K6 also carry their VOC row,
 ``voc_321``), then, as the last line, ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --profile
@@ -197,6 +220,7 @@ each turn in its own process, and prints one ``[ab]`` JSON line per turn.
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import itertools
 import json
 import math
@@ -3218,6 +3242,176 @@ def phase_space_eval(ccnet_pth: str, tmp: str, smi: str) -> dict:
     return k7a
 
 
+# ----------------------------------------------------------------------------
+# The port's drivers of scripts/: the flagship learnability run, remat at
+# scale and the whole-image batch probe.
+E2E_STEPS = 300  # scripts/e2e_synthetic.py's recipe
+REMAT_SCALE_BATCH, REMAT_SCALE_HW = 16, (769, 769)
+REMAT_SCALE_MODES = ("False", "True", "conv12", "convs")
+# the larger batch is chosen so that no remat needs >= (1 + margin) x the free
+# memory and remat (True) <= (1 - margin) x it, by the bs-16 peaks per crop
+REMAT_MARGIN = 0.10
+DRIVER_TIMEOUT = 600  # seconds a driver's child process may take
+WHOLE_BATCH_ARGMAX = 0.999  # B = 2 and 4 against B = 1, each image
+
+
+def _driver(name: str):
+    """``scripts/<name>.py`` as a module (``scripts/`` is not a package)."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def phase_e2e_synthetic(tmp: str) -> dict:
+    """``scripts/e2e_synthetic_torch.py``'s ``run`` at the flagship recipe
+    (CCNet R101 R=2 bf16, OHEM ``ohem_keep`` 30000, batch 8 of 353² crops of
+    512×1024 ``LearnableDS`` images, E2E_STEPS steps, lr 5e-3, device
+    augmentation), then the exported ``.pth`` through the sliding
+    ``Evaluator`` and through the reference replica in f32: E2E_STEPS finite
+    losses, the training's launches (K1–K4 at (8, 45, 45, 64/512), K5/K6 at
+    (8, 45, 45, 19) → 353²) and the evaluation's, and held-out meanIU >
+    0.5 through both (``require_bar``: else the plain route's run is raised
+    beside it). Returns the launches of training and evaluation."""
+    e2e = _driver("e2e_synthetic_torch")
+    recipe = dict(depth=DEPTH, steps=E2E_STEPS, device="cuda", snap_dir=os.path.join(tmp, "e2e"))
+    _reset_counts()
+    r = e2e.run(**recipe)
+    launches = _counts()
+    losses = r["losses"]
+    if len(losses) != E2E_STEPS or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"e2e train losses {losses}")
+    crop = (e2e.CROP, e2e.CROP)
+    # R=2 attention calls forward and backward per step, the NLL of both heads
+    want = _want(crop, 2 * E2E_STEPS, 2 * E2E_STEPS, 2 * E2E_STEPS)
+    if r["train_launches"] != want:
+        raise AssertionError(f"e2e training: expected launches {want}, got {r['train_launches']}")
+    from ccnet_tpu_torch.evaluation import compute_tiles
+
+    # each held-out image is predicted twice (Evaluator.run, predict_batch),
+    # its tiles in chunks of 8, R=2 attention calls a chunk
+    chunks = -(-len(compute_tiles(e2e.HW, crop)) // 8)
+    want_eval = _want(crop, 2 * chunks * 2 * e2e.HELD_OUT)
+    if r["eval_launches"] != want_eval:
+        raise AssertionError(f"e2e evaluation: expected launches {want_eval}, got "
+                             f"{r['eval_launches']}")
+    e2e.require_bar(r, **recipe)
+    log(f"[e2e-synthetic] held-out meanIU port {r['port_miou']:.4f}, replica "
+        f"{r['replica_miou']:.4f}: both above the bar {e2e.MIN_MIOU}; launches as expected")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _remat_child(batch: int, mode: str) -> dict:
+    """One ``scripts/remat_scale_torch.py --batch batch --modes mode`` in a
+    process of its own: its JSON line."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, os.path.join(here, "scripts", "remat_scale_torch.py"), "--batch",
+           str(batch), "--hw", *map(str, REMAT_SCALE_HW), "--modes", mode]
+    p = subprocess.run(cmd, capture_output=True, text=True, timeout=DRIVER_TIMEOUT, cwd=here)
+    lines = [line for line in p.stdout.splitlines() if line.startswith("{")]
+    if p.returncode or not lines:
+        raise AssertionError(f"remat_scale_torch.py --batch {batch} --modes {mode} exited "
+                             f"{p.returncode}: {p.stderr[-2000:]}")
+    return json.loads(lines[-1])
+
+
+def _remat_line(r: dict) -> str:
+    state = (f"{r['s_per_step']:.4f} s/step, {r['crops_per_s']:.2f} crops/s" if r["ok"]
+             else f"out of memory ({r['error'][:80]})")
+    return (f"remat={r['mode']} bs {r['batch']}: {state}, peak {r['peak_bytes'] / 2**30:.2f} GiB"
+            + (f" (held before the first step {r['held_bytes'] / 2**30:.2f})"
+               if "held_bytes" in r else ""))
+
+
+def phase_remat_scale() -> dict:
+    """``scripts/remat_scale_torch.py`` (CCNet R101 R=2 bf16 OHEM, random
+    769² batches), one child process per batch and mode, so that an OOM's
+    fragments stay out of every other run's allocator: at REMAT_SCALE_BATCH
+    every mode of REMAT_SCALE_MODES runs; then, at the smallest batch where
+    no remat needs (1 + REMAT_MARGIN) x the card's free memory and remat
+    (True) at most (1 - REMAT_MARGIN) x it, by this card's bs-16 peaks per
+    crop, ``False`` runs out of memory while ``True`` runs. Each run that
+    completes launched K1–K6 as its steps do. Returns the children's
+    launches, summed."""
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    runs = [_remat_child(REMAT_SCALE_BATCH, m) for m in REMAT_SCALE_MODES]
+    log("[remat-scale] " + "; ".join(_remat_line(r) for r in runs))
+    if not all(r["ok"] for r in runs):
+        raise AssertionError(f"remat-scale: a mode ran out of memory at bs {REMAT_SCALE_BATCH}")
+    at = {r["mode"]: r for r in runs}
+
+    def need(mode: str, batch: int) -> float:  # held + batch x this card's bytes per crop
+        r = at[mode]
+        return r["held_bytes"] + batch * (r["peak_bytes"] - r["held_bytes"]) / REMAT_SCALE_BATCH
+
+    big = next(b for b in range(REMAT_SCALE_BATCH + 1, 1024)
+               if need("False", b) >= (1 + REMAT_MARGIN) * free)
+    log(f"[remat-scale] free memory {free / 2**30:.2f} of {total / 2**30:.2f} GiB; per crop "
+        + ", ".join(f"{m} {(at[m]['peak_bytes'] - at[m]['held_bytes']) / REMAT_SCALE_BATCH / 2**30:.3f}"
+                    for m in REMAT_SCALE_MODES)
+        + f" GiB; the larger batch {big}: no remat needs {need('False', big) / 2**30:.2f} GiB, "
+        f"remat {need('True', big) / 2**30:.2f} GiB (margin {REMAT_MARGIN:.0%} on both sides)")
+    if need("True", big) > (1 - REMAT_MARGIN) * free:
+        raise AssertionError(f"remat-scale: no batch where no remat needs {1 + REMAT_MARGIN:g}x "
+                             f"the free memory and remat at most {1 - REMAT_MARGIN:g}x")
+    runs += [_remat_child(big, m) for m in ("False", "True")]
+    log("[remat-scale] " + "; ".join(_remat_line(r) for r in runs[-2:]))
+    if not (runs[-2]["oom"] and runs[-1]["ok"]):
+        raise AssertionError(f"remat-scale at bs {big}: no remat {runs[-2]}, remat {runs[-1]}")
+    script = _driver("remat_scale_torch")
+    steps = script.WARM_STEPS + script.TIMED_STEPS
+    want = {n: c for n, c in _want(REMAT_SCALE_HW, 2 * steps, 2 * steps, 2 * steps).items() if c}
+    bad = [r for r in runs if r["ok"] and r["launches"] != want]
+    if bad:
+        raise AssertionError(f"remat-scale: expected launches {want}, got {bad[0]['launches']}")
+    total_launches = {n: 0 for n in _counts()}
+    for r in runs:
+        for name, c in r["launches"].items():
+            total_launches[name] += c
+    return total_launches
+
+
+def phase_whole_batch() -> dict:
+    """``scripts/probe_whole_batch_torch.py``'s probe on the card: CCNet R101
+    R=2 bf16 (seeded, ``gamma`` = 0.5) eval forward + ``predict_whole`` +
+    argmax at B = 1, 2 and 4 over four 1024×2048 images (K7a at 129×257):
+    every B fits, B = 2 and 4 give each image B = 1's argmax on at least
+    WHOLE_BATCH_ARGMAX of its pixels, and the launches are K7a's, two per
+    path and forward. Prints ms/batch and ms/img per B; returns the
+    launches."""
+    probe = _driver("probe_whole_batch_torch")
+    _reset_counts()
+    r = probe.probe("cuda")
+    launches = _counts()
+    batches = r["batches"]
+    for B, b in batches.items():
+        log(f"[whole-batch] B={B}: " + (f"out of memory: {b['oom']}" if "oom" in b else
+            f"{b['ms_per_batch']:.2f} ms/batch, {b['ms_per_img']:.2f} ms/img (CUDA events, "
+            f"{probe.REPS} passes over {len(b['agreement'])} images after a warm call); argmax "
+            f"agreement with B=1 "
+            + " ".join(f"{a:.6f}" for a in b["agreement"])))
+    if any("oom" in b for b in batches.values()):
+        raise AssertionError("whole-batch: a batch ran out of memory")
+    if not all(a >= WHOLE_BATCH_ARGMAX for b in batches.values() for a in b["agreement"]):
+        raise AssertionError(f"whole-batch: argmax agreement below {WHOLE_BATCH_ARGMAX}")
+    want = _want(probe.HW, 2 * sum(b["forwards"] for b in batches.values()))
+    if launches != want:
+        raise AssertionError(f"whole-batch: expected launches {want}, got {launches}")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _phase_seconds(name: str, phase, *args):
+    """``phase(*args)``, its seconds logged."""
+    t0 = time.perf_counter()
+    out = phase(*args)
+    log(f"[{name}] phase took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
@@ -3249,6 +3443,7 @@ def main(argv=None) -> None:
             ddp_diagnostics(pth, tmp, smi)
         log(smi)
         return
+    t_main = time.perf_counter()
     smi = phase_card()
     phase_build()
     report = phase_kernels()
@@ -3296,6 +3491,10 @@ def main(argv=None) -> None:
         phase_ddp_eval(trained_769, tmp)
         # height-sharded whole-image inference: two ranks on the one card
         space_k7a = phase_space_eval(ccnet_pth, tmp, smi)
+        # the port's drivers of scripts/: learnability, remat at scale, whole-image batches
+        e2e = _phase_seconds("e2e-synthetic", phase_e2e_synthetic, tmp)
+        remat_scale = _phase_seconds("remat-scale", phase_remat_scale)
+        whole_batch = _phase_seconds("whole-batch", phase_whole_batch)
     # each kernel's launches in the main paths that run it: K1–K6 in the 769²
     # cli.train run (K1/K2 plus the sliding evaluation's, K5/K6 plus
     # full-frame, PSPNet's and DeepLabv3's cli.train), K7a in the --whole and
@@ -3313,6 +3512,10 @@ def main(argv=None) -> None:
     # (K1/K2 sliding, K7a with --whole 1)
     for name in voc:
         launches[name] += voc[name] + predict[name]
+    # the drivers: K1–K6 in the learnability run and the remat children, K7a
+    # in the whole-image batches
+    for name in launches:
+        launches[name] += e2e[name] + remat_scale[name] + whole_batch[name]
     launches.update(probe_launches)
     kernels = [{"name": name, "route": "cuda", "source": f"ccnet_tpu_torch/csrc/{source}",
                 "replaces": replaces, "launches": launches[name],
@@ -3343,6 +3546,7 @@ def main(argv=None) -> None:
             log(f"[summary] {k['name']} at {tuple(VOC_LOSS)} (B, h, w, C, r): {v['ms']:.4f} / "
                 f"{v['bound_ms']:.4f} by {v['bound_by']} ({v['bound_ms'] / v['ms']:.1%}) / "
                 f"{v['plain_ms']:.4f} / none; {v['launches']} launches in the VOC training")
+    log(f"[chip-smoke] every phase passed in {time.perf_counter() - t_main:.1f} s")
     log(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

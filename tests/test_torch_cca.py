@@ -20,6 +20,7 @@ Shapes are those of ``tests/test_pallas_cca.py``, including H=1 (column path
 fully masked) and W=1.
 """
 
+import ast
 import os
 import subprocess
 import sys
@@ -399,6 +400,33 @@ def test_port_never_imports_jax():
             "for m in pkgutil.walk_packages(ccnet_tpu_torch.__path__, 'ccnet_tpu_torch.'):\n"
             "    importlib.import_module(m.name)\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'ccnet_tpu.')))\n"
+            "assert not bad, bad\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    subprocess.run([sys.executable, "-c", code], check=True, cwd=REPO, env=env, timeout=120)
+
+
+# the drivers that run the port on the card, and the reference replica they read
+# its checkpoints with: no import statement names jax or ccnet_tpu, and loading
+# the file as ``python FILE`` would pulls in neither
+DRIVERS = ("scripts/e2e_synthetic_torch.py", "scripts/remat_scale_torch.py",
+           "scripts/probe_whole_batch_torch.py", "scripts/make_lists_torch.py",
+           "tests/_torch_reference_replica.py")
+
+
+@pytest.mark.parametrize("path", DRIVERS)
+def test_port_drivers_never_import_jax(path):
+    names = []
+    for node in ast.walk(ast.parse(open(os.path.join(REPO, path)).read())):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append(node.module)
+    bad = [n for n in names if n.split(".")[0] in ("jax", "ccnet_tpu")]
+    assert not bad, bad
+    code = ("import importlib.util, sys\n"
+            f"spec = importlib.util.spec_from_file_location('driver', {path!r})\n"
+            "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'ccnet_tpu'))\n"
             "assert not bad, bad\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     subprocess.run([sys.executable, "-c", code], check=True, cwd=REPO, env=env, timeout=120)
