@@ -15,6 +15,9 @@ scaled extent are the padding; the mean is subtracted after sampling
 ``oy``, ``ox``, flip) come from :func:`draw_augment_params` with a CPU
 ``torch.Generator`` seeded from ``(seed, step)``; :func:`augment_batch`
 takes them as arguments, so a test can feed it the JAX package's draws.
+Copying the draws and the mean to a card blocks the host (pageable
+memory): each such copy is counted as ``sync.augment.*``
+(:mod:`~ccnet_tpu_torch.utils.trace`).
 The JAX package's ``matmul`` sampler is not carried over.
 
 :func:`finish_u8_crops` is the device tail of the uint8-crop input path,
@@ -35,6 +38,7 @@ import numpy as np
 import torch
 
 from ccnet_tpu_torch.parallel.mesh import rank_slice
+from ccnet_tpu_torch.utils.trace import sync
 
 # reference train.py:30 (BGR order, matches cv2 imread)
 CITYSCAPES_MEAN_BGR = (104.00698793, 116.66876762, 122.67891434)
@@ -69,7 +73,9 @@ def draw_augment_params(batch: int, hw: Tuple[int, int], crop_hw: Tuple[int, int
 
 def _sample_coords(n0: int, s: torch.Tensor, off: torch.Tensor, n: int, device):
     """Half-pixel source coords, nearest indices and validity of one axis:
-    ``(src (B, n) f32, nearest (B, n) int64, valid (B, n) bool)``."""
+    ``(src (B, n) f32, nearest (B, n) int64, valid (B, n) bool)``; three
+    blocking copies of the CPU draws to ``device``."""
+    sync("augment.draws", device, 3)
     pos = torch.arange(n, device=device)[None, :] + off.to(device)[:, None]
     ratio = n0 / s.to(device).float()[:, None]  # f32 H₀/sH
     src = torch.clamp((pos.float() + 0.5) * ratio - 0.5, 0.0, n0 - 1)
@@ -111,6 +117,7 @@ def augment_batch(images: torch.Tensor, labels: torch.Tensor, scale_idx: torch.T
     w = w[:, None, :, None]
     img = (img[b[:, None, None], rows, lo[:, None, :]] * (1 - w)
            + img[b[:, None, None], rows, hi[:, None, :]] * w)  # (B, ch, cw, 3)
+    sync("augment.mean", device)
     img = img - torch.tensor(mean, dtype=torch.float32, device=device)
     valid = valid_y[:, :, None] & valid_x[:, None, :]
     img = torch.where(valid[..., None], img, torch.zeros((), device=device))
@@ -118,6 +125,7 @@ def augment_batch(images: torch.Tensor, labels: torch.Tensor, scale_idx: torch.T
     lbl = labels[b[:, None, None], ny[:, :, None], nx[:, None, :]].to(torch.int32)
     lbl = torch.where(valid, lbl, torch.full((), ignore_label, dtype=torch.int32, device=device))
 
+    sync("augment.draws", device)
     flip = flip.to(device)
     img = torch.where(flip[:, None, None, None], img.flip(2), img)
     lbl = torch.where(flip[:, None, None], lbl.flip(2), lbl)
@@ -147,6 +155,7 @@ def device_augment_batch(images: torch.Tensor, labels: torch.Tensor, seed: int, 
 def finish_u8_crops(images_u8: torch.Tensor, labels_u8: torch.Tensor,
                     mean: Tuple[float, float, float] = CITYSCAPES_MEAN_BGR):
     """Device tail of the uint8-crop path: widen + mean-subtract, int32 labels."""
+    sync("augment.mean", images_u8.device)
     imgs = images_u8.float() - torch.tensor(mean, dtype=torch.float32, device=images_u8.device)
     return imgs, labels_u8.to(torch.int32)
 

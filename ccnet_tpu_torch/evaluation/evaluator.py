@@ -51,6 +51,7 @@ from ccnet_tpu_torch.evaluation.metrics import (
 )
 from ccnet_tpu_torch.evaluation.sliding import predict_multiscale
 from ccnet_tpu_torch.parallel.distributed import is_primary_host
+from ccnet_tpu_torch.utils.trace import count, span, sync
 
 
 def _mark(device: torch.device):
@@ -156,11 +157,19 @@ class Evaluator:
 
     def predict_batch(self, images: np.ndarray) -> np.ndarray:
         """Raw BGR images (B, H, W, 3), f32 or uint8 → trainIds (B, H, W).
-        With ``space`` every rank of the group returns the whole images."""
+        With ``space`` every rank of the group returns the whole images.
+        Spans ``serve.place`` (the copy in) and ``serve.fetch`` (the answer's
+        blocking copy out, counted as ``sync.serve.fetch``); counts
+        ``serve.requests``."""
+        count("serve.requests")
         with torch.inference_mode():
-            transfer, (H, W) = self.place(images)
-            dev, = transfer.wait()
-            return self._whole(*self._predict(dev, H, W), H).cpu().numpy()
+            with span("serve.place"):
+                transfer, (H, W) = self.place(images)
+                dev, = transfer.wait()
+            ids = self._whole(*self._predict(dev, H, W), H)
+            with span("serve.fetch"):
+                sync("serve.fetch", ids.device)
+                return ids.cpu().numpy()
 
     def run(self, loader, output_dir: Optional[str] = None, save_preds: bool = False,
             log_every: int = 10, logger=None) -> dict:

@@ -50,7 +50,7 @@ def cross_process_sum(cm: torch.Tensor) -> torch.Tensor:
     a single process. The counterpart of the JAX package's
     ``cross_process_sum`` and the reference's one NCCL all-reduce of the
     evaluation's confusion matrix."""
-    return all_reduce_sum(cm)
+    return all_reduce_sum(cm, "confusion")
 
 
 class ConfusionAccumulator:

@@ -22,7 +22,7 @@ def masked_mean(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     ranks, this rank's share of the global mean."""
     mask = mask.float()
     total = (values * mask).sum()
-    count = all_reduce_sum(mask.sum().detach())
+    count = all_reduce_sum(mask.sum().detach(), "loss")
     return torch.where(count > 0, total / count.clamp_min(1.0), torch.zeros_like(total))
 
 

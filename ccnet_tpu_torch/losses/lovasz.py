@@ -65,7 +65,7 @@ def _global_grad(errors: torch.Tensor, gt: torch.Tensor):
     truth are gathered in rank order and sorted stably in descending
     order."""
     rank, n = world()[0], errors.shape[0]
-    both = rank_gather(torch.cat([errors, gt], dim=1))
+    both = rank_gather(torch.cat([errors, gt], dim=1), "gather")
     k = errors.shape[1]
     order = both[:, :k].sort(dim=0, descending=True, stable=True).indices
     grad = torch.empty_like(order, dtype=errors.dtype).scatter_(
@@ -183,7 +183,7 @@ def binary_xloss(logits: torch.Tensor, labels: torch.Tensor,
     x, y = logits.float(), labels.float()
     per = x.clamp_min(0.0) - x * y + torch.log1p(torch.exp(-x.abs()))
     vf = valid.float()
-    return (per * vf).sum() / all_reduce_sum(vf.sum()).clamp_min(1.0)
+    return (per * vf).sum() / all_reduce_sum(vf.sum(), "loss").clamp_min(1.0)
 
 
 # ------------------------------------------------------------ IoU metrics ---

@@ -7,7 +7,8 @@ over the valid pixels, ``k = min_kept``; keep every valid pixel when no
 more than ``min_kept`` are valid. ``p_k`` is found as the JAX package finds
 it (:func:`ohem_threshold`, :func:`kth_smallest_bisect`): a count at
 ``thresh``, then quaternary count bisection of ``(thresh, 1]``, choosing
-with ``torch.where``-style indexing, with no sort and no host sync.
+with ``torch.where``-style indexing, with no sort and no read back to the
+host; its bounds are copied to the device (``sync.ohem.bounds``).
 
 Over N ranks every count (each pass's three, the count at ``thresh`` and
 the number of valid pixels) is summed over the ranks with one
@@ -25,6 +26,7 @@ import torch
 from ccnet_tpu_torch.losses.cross_entropy import masked_mean
 from ccnet_tpu_torch.parallel.distributed import world
 from ccnet_tpu_torch.parallel.mesh import all_reduce_sum
+from ccnet_tpu_torch.utils.trace import sync
 
 
 def kth_smallest_bisect(x: torch.Tensor, k: int, iters: int = 25, lo: float = 0.0,
@@ -36,12 +38,13 @@ def kth_smallest_bisect(x: torch.Tensor, k: int, iters: int = 25, lo: float = 0.
     values, in f32 as the JAX function computes it. Values above ``hi``
     (+inf for invalid pixels) never win. Returns the final upper edge, an
     f32 0-d tensor on ``x``'s device."""
+    sync("ohem.bounds", x.device, 2)
     lo = torch.tensor(lo, dtype=torch.float32, device=x.device)
     hi = torch.tensor(hi, dtype=torch.float32, device=x.device)
     for _ in range(iters):
         d = hi - lo
         mids = torch.stack([lo + 0.25 * d, lo + 0.5 * d, lo + 0.75 * d])
-        counts = all_reduce_sum((x[None, :] <= mids[:, None]).sum(dim=1))
+        counts = all_reduce_sum((x[None, :] <= mids[:, None]).sum(dim=1), "ohem")
         # the counts grow with the edge: the first quarter whose upper edge
         # has >= k values is the number of edges with fewer
         j = (counts < k).sum()
@@ -58,11 +61,12 @@ def ohem_threshold(flat: torch.Tensor, k: int, thresh: float, num_valid: torch.T
     that, and the bisection brackets ``(thresh, 1]`` until the bracket is
     narrower than one f32 ulp at ``thresh`` (13 quaternary passes at 0.7),
     where ``p <= hi`` and ``p <= p_k`` select the same pixels."""
+    sync("ohem.bounds", flat.device)
     t = torch.tensor(thresh, dtype=torch.float32, device=flat.device)
     if thresh <= 0.0:
         kth = kth_smallest_bisect(flat, k)
     else:
-        c_t = all_reduce_sum((flat <= t).sum())
+        c_t = all_reduce_sum((flat <= t).sum(), "ohem")
         width = 1.0 - thresh
         ulp = 2.0 ** (math.floor(math.log2(thresh)) - 23)
         iters = max(1, min(25, math.ceil(math.log(max(width, 1e-9) / ulp, 4)) + 1))
@@ -80,9 +84,11 @@ def ohem_keep_mask(p_correct: torch.Tensor, valid: torch.Tensor, thresh: float,
     flat = flat.reshape(-1)
     k = min(min_kept, flat.numel() * world()[1])
     if k <= 0:
+        sync("ohem.bounds", flat.device)
         threshold = torch.tensor(thresh, dtype=torch.float32, device=flat.device)
     else:
-        threshold = ohem_threshold(flat, k, thresh, all_reduce_sum(valid.sum()), min_kept)
+        threshold = ohem_threshold(flat, k, thresh, all_reduce_sum(valid.sum(), "ohem"),
+                                   min_kept)
     return valid & (p_correct <= threshold)
 
 

@@ -172,7 +172,7 @@ class _GlobalBatchNorm(torch.autograd.Function):
         del centred
         m64 = local_mean.double()
         stats = all_reduce_sum(torch.cat([count * m64, m2.double() + count * m64 * m64,
-                                          m64.new_full((1,), count)]))
+                                          m64.new_full((1,), count)]), "bn")
         n = stats[2 * C]
         mean64 = stats[:C] / n
         var64 = (stats[C:2 * C] / n - mean64 * mean64).clamp_min(0.0)
@@ -196,7 +196,7 @@ class _GlobalBatchNorm(torch.autograd.Function):
         xhat = (x.float() - mean[:, None, None]) * rstd[:, None, None]
         sum_dy = dy32.sum(dim=(0, 2, 3))
         sum_dy_xhat = (dy32 * xhat).sum(dim=(0, 2, 3))
-        sums = all_reduce_sum(torch.cat([sum_dy, sum_dy_xhat])) / n
+        sums = all_reduce_sum(torch.cat([sum_dy, sum_dy_xhat]), "bn_grad") / n
         # where the variance is 0 it does not depend on x
         dx = (weight * rstd)[:, None, None] * (
             dy32 - sums[:C, None, None] - xhat * (sums[C:] * live)[:, None, None])

@@ -8,6 +8,7 @@ from ccnet_tpu_torch.parallel.distributed import (
 from ccnet_tpu_torch.parallel.mesh import (
     RankOrder,
     all_reduce_sum,
+    count_grad_all_reduce,
     data_parallel,
     grid,
     rank_gather,
@@ -21,6 +22,7 @@ __all__ = [
     "SpaceGroup",
     "all_reduce_sum",
     "choose_backend",
+    "count_grad_all_reduce",
     "data_parallel",
     "grid",
     "is_primary_host",

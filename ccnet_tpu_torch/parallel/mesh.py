@@ -13,7 +13,8 @@ calls :func:`all_reduce_sum`:
 * :func:`all_reduce_sum` — a sum over the ranks, the identity on one;
 * :func:`data_parallel` — the model's replicas, their parameters broadcast
   from rank 0 and their gradients averaged
-  (``torch.nn.parallel.DistributedDataParallel``);
+  (``torch.nn.parallel.DistributedDataParallel``), whose gradient
+  all-reduce :func:`count_grad_all_reduce` counts;
 * :func:`rank_gather` — every rank's tensor in rank order, where a
   function reads the whole batch (the Lovász losses' sort);
 * :class:`RankOrder` — a dataset reordered so that one process loads the
@@ -37,6 +38,7 @@ import torch.distributed as dist
 
 from ccnet_tpu_torch.parallel.distributed import world
 from ccnet_tpu_torch.parallel.spatial import SpaceGroup
+from ccnet_tpu_torch.utils import trace
 
 
 def rank_slice(t: torch.Tensor, rank: int, size: int) -> torch.Tensor:
@@ -49,29 +51,37 @@ def rank_slice(t: torch.Tensor, rank: int, size: int) -> torch.Tensor:
     return t[rank * n:(rank + 1) * n]
 
 
-def all_reduce_sum(t: torch.Tensor) -> torch.Tensor:
+def _all_reduce(buf: torch.Tensor, kind: str) -> torch.Tensor:
+    """``buf`` summed over the ranks in place, counted and spanned as a
+    collective of ``kind`` (:func:`~ccnet_tpu_torch.utils.trace.collective`)."""
+    with trace.collective(kind, buf.numel() * buf.element_size()):
+        dist.all_reduce(buf)
+    return buf
+
+
+def all_reduce_sum(t: torch.Tensor, kind: str) -> torch.Tensor:
     """``t`` summed over the ranks of the live group, in a new tensor; ``t``
     itself at world size 1. Not differentiable: callers reduce statistics
     and counts, and :class:`~ccnet_tpu_torch.nn.layers.ABN` reduces its
-    gradient sums in its own backward."""
+    gradient sums in its own backward. ``kind`` names the collective in the
+    counters and the trace: ``bn``, ``bn_grad``, ``ohem``, ``loss``,
+    ``confusion``."""
     if world()[1] == 1:
         return t
-    out = t.detach().clone()
-    dist.all_reduce(out)
-    return out
+    return _all_reduce(t.detach().clone(), kind)
 
 
-def rank_gather(t: torch.Tensor) -> torch.Tensor:
+def rank_gather(t: torch.Tensor, kind: str) -> torch.Tensor:
     """``t`` of every rank (one shape on all), concatenated along dim 0 in
-    rank order, detached: one ``all_reduce`` of zero-filled slots. ``t``
-    itself, detached, at world size 1."""
+    rank order, detached: one ``all_reduce`` of zero-filled slots, a
+    collective of ``kind`` (``gather``). ``t`` itself, detached, at world
+    size 1."""
     rank, size = world()
     if size == 1:
         return t.detach()
     buf = t.new_zeros((size, *t.shape))
     buf[rank] = t.detach()
-    dist.all_reduce(buf)
-    return buf.reshape(size * t.shape[0], *t.shape[1:])
+    return _all_reduce(buf, kind).reshape(size * t.shape[0], *t.shape[1:])
 
 
 def grid(space: int = 1) -> tuple:
@@ -108,6 +118,20 @@ def data_parallel(model: torch.nn.Module) -> torch.nn.Module:
     return torch.nn.parallel.DistributedDataParallel(
         model, device_ids=[device.index] if device.type == "cuda" else None,
         broadcast_buffers=False)
+
+
+def count_grad_all_reduce(replica) -> None:
+    """Count the gradient all-reduce that a backward of the
+    ``DistributedDataParallel`` ``replica`` has just issued, as the
+    collective ``ddp_grad``: one call a bucket, the buckets' bytes. DDP's
+    reducer issues it in C++, where no call can be counted, so both come
+    from the reducer's bucket plan: one bucket in the first steps, then the
+    plan it rebuilds in the order the gradients became ready."""
+    plan = replica._get_ddp_logging_data()
+    sizes = [int(s) for s in str(plan.get("rebuilt_bucket_sizes")
+                                  or plan.get("bucket_sizes", "")).split(",") if s.strip()]
+    trace.count("collective.ddp_grad.calls", len(sizes))
+    trace.count("collective.ddp_grad.bytes", sum(sizes))
 
 
 class RankOrder:

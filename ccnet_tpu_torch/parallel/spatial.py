@@ -33,7 +33,8 @@ space group only, never on the world group.
 length of one forward (:func:`current`); without a current plan the layers
 compute what they compute in one process. The group counts each kind of
 collective, calls and bytes, in :attr:`SpaceGroup.counts`, and keeps the
-latest sharded forward's in :attr:`SpaceGroup.events`.
+latest sharded forward's in :attr:`SpaceGroup.events`; in a profiler's
+trace each is the span ``collective.space_<kind>``.
 """
 
 from __future__ import annotations
@@ -44,6 +45,8 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
+
+from ccnet_tpu_torch.utils import trace
 
 KINDS = ("exchange", "gather", "sum")
 
@@ -82,7 +85,8 @@ class SpaceGroup:
         self.counts[kind][0] += 1
         self.counts[kind][1] += nbytes
         self.events.append((kind, rows, nbytes))
-        dist.all_reduce(buf, group=self.group)
+        with trace.span(f"collective.space_{kind}"):
+            dist.all_reduce(buf, group=self.group)
         return buf
 
     def sum(self, x: torch.Tensor) -> torch.Tensor:

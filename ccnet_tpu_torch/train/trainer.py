@@ -19,7 +19,10 @@ library (draws seeded per step as in the JAX package) and copies the crops.
 ``remat`` recomputes backbone blocks in the backward
 (:func:`~ccnet_tpu_torch.models.backbone.remat_plan`). ``profile_steps=
 (start, stop)`` traces steps [start, stop) with ``torch.profiler`` into a
-chrome trace under ``snapshot_dir/profile``; ``tensorboard`` writes
+chrome trace under ``snapshot_dir/profile``, where the spans of
+:mod:`~ccnet_tpu_torch.utils.trace` name the loop's phases
+(``ccnet.train.loader_wait``, ``.augment``, ``.forward``, ``.loss``,
+``.backward``, ``.optimizer``); ``tensorboard`` writes
 ``train/loss``, ``train/lr`` and ``train/img_per_s`` every ``log_every``
 steps to ``snapshot_dir/tb``. Each of these two warns and goes on where it
 is unavailable. ``space`` folds into data parallelism, as the JAX package's
@@ -74,6 +77,7 @@ from ccnet_tpu_torch.utils import (
     save_checkpoint,
     save_pth,
 )
+from ccnet_tpu_torch.utils.trace import span, sync
 
 
 @dataclass
@@ -202,19 +206,20 @@ class Trainer:
         (B, H, W) int32)``, on the device, in the step. Over N ranks the
         ``device`` augmenter's draws are the global batch's, sliced."""
         c = self.cfg
-        if c.augment_backend == "device":
-            imgs, lbls = device_augment_batch(
-                images, labels, seed=c.seed + 1, step=step, crop_hw=tuple(c.input_size),
-                mean=tuple(c.mean), ignore_label=c.ignore_label, scale_min=c.scale_min,
-                scale_steps=c.scale_steps, scale=c.random_scale, mirror=c.random_mirror,
-                rank=self.rank, ranks=self.ranks)
-        elif c.augment_backend == "host_u8":
-            imgs, lbls = finish_u8_crops(images, labels, mean=tuple(c.mean))
-        elif c.augment_backend in ("precropped", "native"):
-            imgs, lbls = images.float(), labels.to(torch.int32)
-        else:
-            raise ValueError(f"unknown augment_backend {c.augment_backend!r}")
-        return imgs.permute(0, 3, 1, 2).contiguous(), lbls
+        with span("train.augment"):
+            if c.augment_backend == "device":
+                imgs, lbls = device_augment_batch(
+                    images, labels, seed=c.seed + 1, step=step, crop_hw=tuple(c.input_size),
+                    mean=tuple(c.mean), ignore_label=c.ignore_label, scale_min=c.scale_min,
+                    scale_steps=c.scale_steps, scale=c.random_scale, mirror=c.random_mirror,
+                    rank=self.rank, ranks=self.ranks)
+            elif c.augment_backend == "host_u8":
+                imgs, lbls = finish_u8_crops(images, labels, mean=tuple(c.mean))
+            elif c.augment_backend in ("precropped", "native"):
+                imgs, lbls = images.float(), labels.to(torch.int32)
+            else:
+                raise ValueError(f"unknown augment_backend {c.augment_backend!r}")
+            return imgs.permute(0, 3, 1, 2).contiguous(), lbls
 
     def _start_profiler(self):
         """A started ``torch.profiler`` over the host and, on a card, CUDA
@@ -297,13 +302,14 @@ class Trainer:
                         place = functools.partial(self._native_crops, steps=itertools.count(step))
                     it = device_prefetch(iter(loader), place)
                 t0 = time.perf_counter()
-                try:
-                    transfer, _ = next(it)
-                except StopIteration:
-                    epoch += 1
-                    it = None
-                    continue
-                images, labels = transfer.wait()
+                with span("train.loader_wait"):
+                    try:
+                        transfer, _ = next(it)
+                    except StopIteration:
+                        epoch += 1
+                        it = None
+                        continue
+                    images, labels = transfer.wait()
                 if c.profile_steps and step == c.profile_steps[0] and is_primary_host():
                     profiler = self._start_profiler()
                 if cuda:
@@ -325,6 +331,7 @@ class Trainer:
                     profiler = None
                 if step % c.log_every == 0 or step == c.num_steps:
                     last_loss = float(metrics["loss"])  # the one host sync of the loop
+                    sync("train.log_loss", self.device)
                     dt = (time.perf_counter() - last_t) / c.log_every
                     last_t = time.perf_counter()
                     lr = self.state.optimizer.param_groups[0]["lr"]

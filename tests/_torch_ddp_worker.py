@@ -9,7 +9,8 @@ own entry points, and writes ``rank<r>.pt`` for the test to read:
 * ``steps``: two train steps of the tiny CCNet on the rank's share of the
   global batches (``make_train_step`` on the ``DistributedDataParallel``
   replica), without dropout, with dropout 0.1, and with ``remat`` blocks and
-  conv12: the logged losses and the final state dicts;
+  conv12: the logged losses and the final state dicts, and what the
+  program's counters (``utils.trace.counts()``) gained over the steps;
 * ``abn``: :class:`~ccnet_tpu_torch.nn.layers.ABN` in train mode on the
   rank's share of a global input (several values per channel, and one per
   rank): output, input grad, parameter grads and running stats;
@@ -36,6 +37,7 @@ def _steps(case, rank, size, drop_rate=0.0, remat=False):
     from ccnet_tpu_torch.models import CCNet
     from ccnet_tpu_torch.parallel import data_parallel, rank_slice
     from ccnet_tpu_torch.train import create_train_state, make_train_step
+    from ccnet_tpu_torch.utils import trace
 
     model = CCNet(num_classes=case["classes"], layers=case["layers"], recurrence=2,
                   drop_rate=drop_rate, remat=remat)
@@ -43,13 +45,16 @@ def _steps(case, rank, size, drop_rate=0.0, remat=False):
     state = create_train_state(model, **case["optim"])
     step = make_train_step(build_criterion(ohem=True, **case["ohem"]), seed=case["seed"],
                            forward=data_parallel(model))
+    before = trace.counts()
     losses = [float(step(state, rank_slice(x, rank, size), rank_slice(y, rank, size))["loss"])
               for x, y in zip(case["images"], case["labels"])]
+    after = trace.counts()
     sd = model.state_dict()
     # the keys the test compares, and a digest of the whole state for the
     # ranks' agreement (the full state of every run would take ~0.5 GB)
     return {"losses": losses, "state": {k: sd[k].detach().clone() for k in case["keys"]},
-            "digest": [float(v.double().abs().sum()) for v in sd.values()]}
+            "digest": [float(v.double().abs().sum()) for v in sd.values()],
+            "counts": {k: v - before.get(k, 0) for k, v in after.items()}}
 
 
 def _abn(case, rank, size):

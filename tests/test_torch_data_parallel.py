@@ -21,7 +21,9 @@ run, this process computes the references:
 * (e) 2-rank sliding ``cli.evaluate`` over 4 images: the summed confusion
   equals the one-process one exactly; only rank 0 writes ``result.txt``;
 * (f) only rank 0 writes the checkpoint and the ``.pth``;
-* (g) a global batch that does not divide over the ranks exits.
+* (g) a global batch that does not divide over the ranks exits;
+* (h) the collectives a step issues, calls and bytes of each kind, as the
+  program counts them (``utils.trace``), equal hand counts.
 """
 
 import os
@@ -403,6 +405,41 @@ def test_indivisible_global_batch_exits(runs):
     """(g)"""
     for r in runs["ranks"]:
         assert r["indivisible"] is not None and "must divide over 2" in r["indivisible"]
+
+
+# (h): what one train step of the tiny CCNet issues over the ranks, by hand:
+# one all-reduce a BN layer's forward, of its 2C f64 sums and f64 count, and
+# one a BN layer's backward, of its 2C f32 gradient sums; OHEM's count of
+# valid pixels, its count at thresh and one of three int64 counts a
+# bisection pass (14 passes bracket (0.2, 1] to an f32 ulp at 0.2); the two
+# masked means' f32 counts and the step's f32 loss sum
+OHEM_PASSES = 14
+
+
+def _hand_counts() -> dict:
+    """``{kind: (calls, bytes)}`` of one step."""
+    model = CCNet(num_classes=TINY_CLASSES, layers=TINY_LAYERS, recurrence=2, drop_rate=0.0)
+    widths = [m.weight.numel() for m in model.modules() if isinstance(m, ABN)]
+    return {"bn": (len(widths), sum((2 * c + 1) * 8 for c in widths)),
+            "bn_grad": (len(widths), sum(2 * c * 4 for c in widths)),
+            "ohem": (OHEM_PASSES + 2, 8 + 8 + OHEM_PASSES * 3 * 8),
+            "loss": (3, 3 * 4),
+            "ddp_grad": (None, sum(p.numel() * 4 for p in model.parameters()))}
+
+
+@pytest.mark.parametrize("kind", ["bn", "bn_grad", "ohem", "loss", "ddp_grad"])
+def test_collective_counts_match_hand_counts(runs, kind):
+    """DDP's gradient all-reduce carries every parameter's gradient once a
+    step, in at least one bucket; both ranks count alike."""
+    a, b = (r["steps"]["counts"] for r in runs["ranks"])
+    assert a == b
+    assert a["train.steps"] == STEPS
+    calls, nbytes = _hand_counts()[kind]
+    assert a[f"collective.{kind}.bytes"] == STEPS * nbytes
+    if calls is None:
+        assert a[f"collective.{kind}.calls"] >= STEPS
+    else:
+        assert a[f"collective.{kind}.calls"] == STEPS * calls
 
 
 def test_device_augment_draws_are_the_global_batchs():

@@ -134,4 +134,4 @@ def test_rank_slice_and_single_process_sum():
     assert torch.equal(torch.cat([rank_slice(t, r, 3) for r in range(3)]), t)
     with pytest.raises(ValueError, match="does not divide over 4 ranks"):
         rank_slice(t, 0, 4)
-    assert all_reduce_sum(t) is t  # no group: the identity
+    assert all_reduce_sum(t, "loss") is t  # no group: the identity
