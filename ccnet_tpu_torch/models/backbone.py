@@ -31,7 +31,6 @@ from contextlib import contextmanager, nullcontext
 from typing import Any, Sequence, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import (
     CheckpointPolicy,
@@ -114,11 +113,11 @@ class Bottleneck(nn.Module):
             if has_downsample else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = F.relu(self.bn1(self.conv1(x)))
-        out = F.relu(self.bn2(self.conv2(out)))
-        out = self.bn3(self.conv3(out))
+        out = self.bn1(self.conv1(x), relu=True)
+        out = self.bn2(self.conv2(out), relu=True)
+        out = self.conv3(out)  # before the shortcut's conv: remat keeps the first convs
         residual = self.downsample(x) if self.downsample is not None else x
-        return F.relu(out + residual)
+        return self.bn3(out, residual=residual, relu=True)
 
 
 class DilatedResNet(nn.Module):
@@ -156,9 +155,9 @@ class DilatedResNet(nn.Module):
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         x = x.to(self.dtype)
-        x = F.relu(self.bn1(self.conv1(x)))
-        x = F.relu(self.bn2(self.conv2(x)))
-        x = F.relu(self.bn3(self.conv3(x)))
+        x = self.bn1(self.conv1(x), relu=True)
+        x = self.bn2(self.conv2(x), relu=True)
+        x = self.bn3(self.conv3(x), relu=True)
         x = max_pool_ceil(x, 3, 2, 1)
         feats = []
         for li in (1, 2, 3, 4):

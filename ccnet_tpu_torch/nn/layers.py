@@ -10,10 +10,20 @@ Counterpart of :mod:`ccnet_tpu.nn.layers`, NCHW.
   row, or row padding) takes its halo rows from the other shards and runs
   without row padding.
 * :class:`ABN` is batch norm followed by identity (backbone) or leaky-ReLU
-  0.01 (heads, InPlace-ABN's default). In eval mode scale and shift are
-  computed in f32 from the running stats, then cast to the input dtype. In
-  train mode it is ``F.batch_norm(training=True)`` (statistics in f32 for a
-  bf16 input): it normalises with the biased batch variance and updates the
+  0.01 (heads, InPlace-ABN's default); ``ABN(x, residual, relu=True)``
+  returns ``relu(BN(x) + residual)`` (the bottleneck's tail), else the
+  ABN's own activation. In eval mode a CUDA tensor takes the whole of it
+  in one pass of the hand-written kernel
+  (:func:`ccnet_tpu_torch.ops.abn_eval.abn_eval`: bf16 or f32, f32
+  arithmetic rounded once, any layout, a residual of x's shape and dtype;
+  anything else raises) and counts ``abn.eval.fused``; a tensor off the
+  card (the CPU) takes the torch expression (scale and shift computed in
+  f32 from the running stats, cast to the input dtype, then the residual
+  add and the activation) and counts ``abn.eval.plain``. Train mode never
+  takes the kernel: it runs BN, then ``+ residual``, then the
+  activation, as separate torch ops, BN being
+  ``F.batch_norm(training=True)`` (statistics in f32 for a bf16 input):
+  it normalises with the biased batch variance and updates the
   running stats with momentum 0.1 and the unbiased variance, as the JAX
   package's ABN does, and keeps only its input for the backward (taking the
   statistics of an f32 copy of the input in autograd would keep that copy
@@ -54,9 +64,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ccnet_tpu_torch.ops import abn_eval
 from ccnet_tpu_torch.parallel import spatial
 from ccnet_tpu_torch.parallel.distributed import world
 from ccnet_tpu_torch.parallel.mesh import all_reduce_sum, rank_slice
+from ccnet_tpu_torch.utils import trace
 
 
 class Conv(nn.Conv2d):
@@ -110,25 +122,49 @@ class ABN(nn.Module):
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training and spatial.current() is not None:
+    def forward(self, x: torch.Tensor, residual: torch.Tensor | None = None,
+                relu: bool = False) -> torch.Tensor:
+        """``act(BN(x) + residual)``: ``act`` is ReLU where ``relu``, else
+        the ABN's own activation; no residual where it is None."""
+        act = "relu" if relu else self.activation
+        if not self.training:
+            return self._eval(x, residual, act)
+        if spatial.current() is not None:
             raise RuntimeError("a height-sharded forward is inference only: put the model "
                                "in eval mode")
         momentum = 0.0 if getattr(_STATE, "recomputing", False) else self.momentum
-        if self.training and world()[1] > 1:
+        if world()[1] > 1:
             y = _GlobalBatchNorm.apply(x, self.weight, self.bias, self.running_mean,
                                        self.running_var, momentum, self.eps)
-        elif self.training and x.numel() == x.shape[1]:
+        elif x.numel() == x.shape[1]:
             y = self._train_one_value(x, momentum)
-        elif self.training:
+        else:
             y = F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
                              training=True, momentum=momentum, eps=self.eps)
-        else:
-            scale = self.weight * torch.rsqrt(self.running_var + self.eps)
-            shift = self.bias - self.running_mean * scale
-            y = x * scale.to(x.dtype)[:, None, None] + shift.to(x.dtype)[:, None, None]
-        if self.activation == "leaky_relu":
-            y = torch.where(y >= 0, y, y * self.slope)
+        return self._finish(y, residual, act)
+
+    def _eval(self, x: torch.Tensor, residual, act: str) -> torch.Tensor:
+        if x.device.type != "cuda":
+            return self._eval_plain(x, residual, act)
+        trace.count("abn.eval.fused")
+        return abn_eval.abn_eval(x, self.weight, self.bias, self.running_mean,
+                                 self.running_var, self.eps, act, self.slope, residual)
+
+    def _eval_plain(self, x: torch.Tensor, residual, act: str) -> torch.Tensor:
+        """Eval mode off the card: the torch expression."""
+        trace.count("abn.eval.plain")
+        scale = self.weight * torch.rsqrt(self.running_var + self.eps)
+        shift = self.bias - self.running_mean * scale
+        y = x * scale.to(x.dtype)[:, None, None] + shift.to(x.dtype)[:, None, None]
+        return self._finish(y, residual, act)
+
+    def _finish(self, y: torch.Tensor, residual, act: str) -> torch.Tensor:
+        if residual is not None:
+            y = y + residual
+        if act == "relu":
+            return F.relu(y)
+        if act == "leaky_relu":
+            return torch.where(y >= 0, y, y * self.slope)
         return y
 
     def _train_one_value(self, x: torch.Tensor, momentum: float) -> torch.Tensor:

@@ -8,9 +8,9 @@ capability 9.0 and ``nvcc``. It imports nothing of JAX. Phases, in order; any
 failure raises and exits non-zero:
 
 1. card: the ``nvidia-smi`` name and power limit; capability (9, 0) required;
-2. build: the six CUDA libraries of ``ccnet_tpu_torch/csrc`` (``cca_fwd``,
+2. build: the seven CUDA libraries of ``ccnet_tpu_torch/csrc`` (``cca_fwd``,
    ``cca_bwd``, ``upsampled_ce``, ``cca_lines``, ``cca_lines_tc``,
-   ``probes``), one ``nvcc`` each, started together;
+   ``probes``, ``abn_eval``), one ``nvcc`` each, started together;
 3. kernels vs plain: K1 ``cca_fwd_col`` and K2 ``cca_fwd_row`` against their
    plain-torch versions, and the routed op against the joint-softmax
    oracle, at the sliding-tile, VOC (8, 41, 41), whole-image and edge
@@ -68,7 +68,10 @@ failure raises and exits non-zero:
    != 0 and for a base 2 bytes past 16, bands past 64 tiles at H = 231,
    three channel chunks at C = 136, P4's bands of a ragged line); then the
    probe main path, ``ccnet_tpu_torch.cli.probe.main``, prints five PASS
-   lines and launches each kernel;
+   lines and launches each kernel; eval-mode ABN's kernel
+   (``phase_abn_eval``) at the serving shapes, NCHW and channels_last,
+   within one bf16 rounding of its f32 formula, timed beside the torch
+   expression it replaces and its bound;
 8. full model: CCNet-R101 R=2 bf16 with seeded random weights (``gamma`` =
    0.5, so the attention moves the logits), kernel route vs plain route on
    one (8, 3, 769, 769) batch (K1/K2) and on one (1, 3, 1024, 2048) image
@@ -231,6 +234,7 @@ import sys
 import tempfile
 import time
 import warnings
+from contextlib import contextmanager, nullcontext
 
 import numpy as np
 import torch
@@ -355,7 +359,8 @@ def phase_card() -> str:
     return smi
 
 
-LIBRARIES = ("cca_fwd", "cca_bwd", "upsampled_ce", "cca_lines", "cca_lines_tc", "probes")
+LIBRARIES = ("cca_fwd", "cca_bwd", "upsampled_ce", "cca_lines", "cca_lines_tc", "probes",
+             "abn_eval")
 
 
 def phase_build() -> None:
@@ -1655,30 +1660,127 @@ def phase_probe_cli() -> dict:
     return moved
 
 
-def _eval_ab(model, x, tag: str, want: dict) -> None:
+# eval-mode ABNs of one CCNet-R101 forward: 106 in the trunk, 3 in the RCCA
+# head, 1 in the DSN; the 33 bottlenecks' bn3s take a residual
+ABN_CCNET_R101, ABN_CCNET_R101_RESIDUAL = 110, 33
+# eval-mode ABN's kernel at the sliding-window serving shapes: (B, C, H, W),
+# residual, activation. bn3 of layer 3's blocks with its residual, the
+# stem's BN at 385², and the RCCA head's leaky-ReLU ABN
+ABN_SHAPES = {"bn3 + residual 97²": ((8, 1024, 97, 97), True, "relu"),
+              "stem 385²": ((8, 64, 385, 385), False, "relu"),
+              "head leaky 97²": ((8, 512, 97, 97), False, "leaky_relu")}
+
+
+def phase_abn_eval() -> dict:
+    """Eval-mode ABN's kernel (``ops.abn_eval``) at :data:`ABN_SHAPES` in
+    bf16, NCHW and channels_last: within one bf16 rounding of its f32
+    formula (``abn_eval_reference``), then timed against the torch
+    expression it replaces (BN's mul and add with scale and shift cast to
+    bf16, the residual add, the activation) and its bound (x and the
+    residual read, y written)."""
+    from ccnet_tpu_torch.nn import ABN
+    from ccnet_tpu_torch.ops import abn_eval as A
+
+    out = {}
+    for tag, (shape, residual, act) in ABN_SHAPES.items():
+        C = shape[1]
+        rng = np.random.RandomState(7)
+        m = ABN(C, "leaky_relu").eval().cuda()
+        with torch.no_grad():
+            for name, t in (("weight", rng.rand(C) + 0.5), ("bias", rng.randn(C)),
+                            ("running_mean", rng.randn(C)), ("running_var", rng.rand(C) + 0.5)):
+                getattr(m, name).copy_(torch.from_numpy(t.astype(np.float32)))
+        params = (m.weight, m.bias, m.running_mean, m.running_var)
+        x = torch.randn(shape, device="cuda").mul_(2).to(torch.bfloat16)
+        r = torch.randn(shape, device="cuda").mul_(2).to(torch.bfloat16) if residual else None
+
+        def kernel(x, r):
+            return A.abn_eval(x, *params, m.eps, act, m.slope, r)
+
+        def plain(x, r):
+            scale = m.weight * torch.rsqrt(m.running_var + m.eps)
+            shift = m.bias - m.running_mean * scale
+            y = x * scale.to(x.dtype)[:, None, None] + shift.to(x.dtype)[:, None, None]
+            y = y + r if r is not None else y
+            return torch.relu(y) if act == "relu" else torch.where(y >= 0, y, y * m.slope)
+
+        row = {}
+        with torch.inference_mode():
+            for layout in ("nchw", "channels_last"):
+                fmt = torch.channels_last if layout == "channels_last" else torch.contiguous_format
+                xl = x.contiguous(memory_format=fmt)
+                rl = r.contiguous(memory_format=fmt) if residual else None
+                y = kernel(xl, rl)
+                ref = A.abn_eval_reference(xl, *params, m.eps, act, m.slope, rl)
+                excess = ((y.float() - ref).abs() - 2.0 ** -8 * ref.abs()).max().item()
+                if not excess <= 1e-5 * max(1.0, ref.abs().max().item()):
+                    raise AssertionError(f"abn_eval {tag} {layout}: beyond one bf16 rounding "
+                                         f"of its f32 formula by {excess:.3e}")
+                ms = _time_ms(kernel, xl, rl)
+                b = _bound([t for t in (xl, rl) if t is not None], [y], 0.0, torch.bfloat16)
+                row[layout] = {"ms": ms, "share": b["bound_ms"] / ms}
+            row.update(plain_ms=_time_ms(plain, x, r), bound_ms=b["bound_ms"],
+                       bound_mb=b["bound_bytes"] / 1e6)
+        out[tag] = row
+        log(f"[abn_eval] {tag} {shape} bf16 {act}{' + residual' if residual else ''}: kernel "
+            f"{row['nchw']['ms']:.4f} ms ({row['nchw']['share']:.1%} of the bound), "
+            f"channels_last {row['channels_last']['ms']:.4f} ms "
+            f"({row['channels_last']['share']:.1%}); torch expression {row['plain_ms']:.4f} ms; "
+            f"bound {row['bound_ms']:.4f} ms ({row['bound_mb']:.1f} MB)")
+        del x, r
+    return out
+
+
+@contextmanager
+def _abn_plain():
+    """Eval-mode ABN on the card through the torch expression it replaced
+    (``ABN._eval_plain``, the CPU's route), for a comparison."""
+    from ccnet_tpu_torch.nn import ABN
+
+    fused = ABN._eval
+    ABN._eval = ABN._eval_plain
+    try:
+        yield
+    finally:
+        ABN._eval = fused
+
+
+def _eval_ab(model, x, tag: str, want: dict) -> dict:
     """The eval forward of ``model`` on ``x`` through each CCA route: the
     kernel route's main logits against the plain route's, the kernel
-    route's launches against ``want``, then both routes timed in turns
-    (kernel, plain, plain, kernel, ...) after one untimed call of each."""
+    route's launches against ``want`` and eval-mode ABN's against
+    :data:`ABN_CCNET_R101` (:data:`ABN_CCNET_R101_RESIDUAL` with a
+    residual), its logits against those of the same route with eval-mode
+    ABN as the torch expression, then the three timed in turns after one
+    untimed call of each. Returns ABN's launches of the one forward."""
     from ccnet_tpu_torch.ops import cc_attention_cuda as K
 
     with torch.inference_mode():
-        before = dict(K.LAUNCHES)
+        before, abn_before = dict(K.LAUNCHES), _abn_launches()
         model.set_cca_impl("kernel")
         main_k = model(x)["main"]
+        abn = {n: c - abn_before[n] for n, c in _abn_launches().items()}
         moved = {n: K.LAUNCHES[n] - before[n] for n in K.LAUNCHES}
         if moved != want:
             raise RuntimeError(f"{tag}: impl='kernel' launched {moved}, not {want}")
+        abn_want = {"abn_eval": ABN_CCNET_R101, "abn_eval_residual": ABN_CCNET_R101_RESIDUAL}
+        if abn != abn_want:
+            raise RuntimeError(f"{tag}: eval-mode ABN launched {abn}, not {abn_want}")
+        with _abn_plain():
+            main_p = model(x)["main"]
         model.set_cca_impl("torch")
         main_t = model(x)["main"]
-        times = {"kernel": [], "torch": []}
+        times = {"kernel": [], "torch": [], "abn_plain": []}
         for rep in range(EVAL_AB_REPS + 1):
-            for impl in ("kernel", "torch") if rep % 2 else ("torch", "kernel"):
-                model.set_cca_impl(impl)
+            turns = ("kernel", "torch", "abn_plain") if rep % 2 else ("abn_plain", "torch",
+                                                                      "kernel")
+            for impl in turns:
+                model.set_cca_impl("kernel" if impl == "abn_plain" else impl)
                 start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-                start.record()
-                model(x)
-                end.record()
+                with _abn_plain() if impl == "abn_plain" else nullcontext():
+                    start.record()
+                    model(x)
+                    end.record()
                 end.synchronize()
                 if rep:
                     times[impl].append(start.elapsed_time(end))
@@ -1700,12 +1802,27 @@ def _eval_ab(model, x, tag: str, want: dict) -> None:
         f"{' '.join(f'{t:.4f}' for t in times['torch'])})")
     if not err <= MODEL_TOL * scale or agree < MODEL_ARGMAX:
         raise AssertionError(f"{tag}: the kernel route disagrees with the plain route")
+    err, scale = _err(main_k, main_p)
+    agree = (main_k.argmax(1) == main_p.argmax(1)).float().mean().item()
+    log(f"[model] {tag}: eval-mode ABN's kernel ({abn['abn_eval']} launches, "
+        f"{abn['abn_eval_residual']} with a residual) vs the torch expression, main logits max "
+        f"abs err {err:.3e} (scale {scale:.3g}, tol {MODEL_TOL:g} x scale), argmax agreement "
+        f"{agree:.6f}; forward median {np.median(times['kernel']):.4f} ms vs "
+        f"{np.median(times['abn_plain']):.4f} ms (CUDA events, {EVAL_AB_REPS} each, in turns: "
+        f"{' '.join(f'{t:.4f}' for t in times['abn_plain'])})")
+    if not err <= MODEL_TOL * scale or agree < MODEL_ARGMAX:
+        raise AssertionError(f"{tag}: eval-mode ABN's kernel disagrees with the torch "
+                             f"expression")
+    return {**abn, "ms": float(np.median(times["kernel"])),
+            "plain_ms": float(np.median(times["abn_plain"]))}
 
 
-def phase_model(pth: str) -> None:
+def phase_model(pth: str) -> dict:
     """R101 R=2 bf16 with seeded random weights (saved to ``pth``): the eval
     forward's kernel route against its plain route on 8 crops of 769²
-    (K1/K2) and on one whole 1024×2048 image (K7a, the line route)."""
+    (K1/K2) and on one whole 1024×2048 image (K7a, the line route), each
+    with eval-mode ABN's kernel against its torch expression. Returns
+    :func:`_eval_ab`'s ABN launches and times by batch shape."""
     from ccnet_tpu_torch.models import build_model, randomize_
 
     torch.backends.cudnn.allow_tf32 = True  # the bf16 model's default setting
@@ -1714,22 +1831,28 @@ def phase_model(pth: str) -> None:
     randomize_(model, seed=0)
     torch.save(model.state_dict(), pth)
     rng = np.random.RandomState(2)
+    out = {}
     for batch, hw in ((8, (CROP, CROP)), (1, EVAL_HW)):
         x = torch.from_numpy((rng.rand(batch, 3, *hw) * 255.0 - 120.0).astype(np.float32)).cuda()
         want = _cca_want((batch, *map(_features, hw), 64, 512), torch.bfloat16,
                          fwd=2)  # R=2 recurrences
-        _eval_ab(model, x, f"R101 R=2 bf16 ({batch},3,{hw[0]},{hw[1]})", want)
+        shape = f"({batch},3,{hw[0]},{hw[1]})"
+        out[shape] = _eval_ab(model, x, f"R101 R=2 bf16 {shape}", want)
         del x
     del model
     torch.cuda.empty_cache()
+    return out
 
 
 def _launch_counts() -> tuple:
+    """The launch counters of the wrappers: the attention's, the loss's, the
+    probes' and eval-mode ABN's (last)."""
+    from ccnet_tpu_torch.ops import abn_eval as A
     from ccnet_tpu_torch.ops import cc_attention_cuda as K
     from ccnet_tpu_torch.ops import probes as P
     from ccnet_tpu_torch.ops import upsampled_ce as U
 
-    return K.LAUNCHES, U.LAUNCHES, P.LAUNCHES
+    return K.LAUNCHES, U.LAUNCHES, P.LAUNCHES, A.LAUNCHES
 
 
 def _reset_counts() -> None:
@@ -1739,7 +1862,15 @@ def _reset_counts() -> None:
 
 
 def _counts() -> dict:
-    return {n: c for counts in _launch_counts() for n, c in counts.items()}
+    """The launches :func:`_want` and :func:`_eval_want` predict: every
+    wrapper's but eval-mode ABN's, which :func:`_abn_launches` reads."""
+    return {n: c for counts in _launch_counts()[:3] for n, c in counts.items()}
+
+
+def _abn_launches() -> dict:
+    """Eval-mode ABN's launches since the last :func:`_reset_counts`, and
+    those with a residual."""
+    return dict(_launch_counts()[3])
 
 
 def _path_designs(shape, dtype) -> dict:
@@ -2095,11 +2226,33 @@ def _eval_want(mode: str, images: int, model_name: str = "ccnet") -> dict:
     return want
 
 
+def _eval_forwards(mode: str, images: int) -> int:
+    """The model's forwards in evaluating ``images`` of :data:`EVAL_HW` in
+    one of :data:`EVAL_MODES` (half CCNet's attention calls at R=2)."""
+    from ccnet_tpu_torch.evaluation import compute_tiles
+
+    chunks = -(-len(compute_tiles(EVAL_HW, (CROP, CROP))) // 8) if mode.startswith("sliding") else 1
+    return sum(images * chunks * n // 2 for n in EVAL_MODES[mode][1].values())
+
+
+def _abn_check(tag: str, model_name: str, forwards: int) -> dict:
+    """Eval-mode ABN's launches since the last :func:`_reset_counts` against
+    ``forwards`` R101 eval forwards: the 33 residual bn3s of the trunk each,
+    and CCNet's :data:`ABN_CCNET_R101` (the other heads' at least the
+    trunk's 106). Returns them."""
+    abn = _abn_launches()
+    whole = abn["abn_eval"] == ABN_CCNET_R101 * forwards if model_name == "ccnet" else \
+        abn["abn_eval"] >= 106 * forwards
+    if not whole or abn["abn_eval_residual"] != ABN_CCNET_R101_RESIDUAL * forwards:
+        raise AssertionError(f"{tag}: eval-mode ABN launched {abn} in {forwards} forwards")
+    return abn
+
+
 def phase_main_path(pth: str, mode: str, model_name: str = "ccnet") -> dict:
     """``cli.evaluate.main --model model_name`` on the synthetic 1024×2048
     set in one of :data:`EVAL_MODES`: meanIU, the confusion sum, launch
-    counts (CCNet: its attention kernels; the other heads launch none),
-    PNGs, s/img, peak memory."""
+    counts (CCNet: its attention kernels; the other heads launch none;
+    eval-mode ABN's, :func:`_abn_check`), PNGs, s/img, peak memory."""
     from ccnet_tpu_torch.cli.evaluate import main
     from ccnet_tpu_torch.data import SyntheticDataset
     from ccnet_tpu_torch.data.palette import read_png
@@ -2126,6 +2279,7 @@ def phase_main_path(pth: str, mode: str, model_name: str = "ccnet") -> dict:
             raise AssertionError(f"confusion matrix sums to {total}, {valid} pixels are not ignored")
         if launches != want:
             raise AssertionError(f"{mode}: expected launches {want}, got {launches}")
+        abn = _abn_check(f"{mode} {model_name}", model_name, _eval_forwards(mode, len(ds)))
         pngs = ""
         if "--save-preds" in flags:
             for i in range(len(ds)):
@@ -2142,7 +2296,7 @@ def phase_main_path(pth: str, mode: str, model_name: str = "ccnet") -> dict:
         f"events, predict + confusion; second image; first {secs[0]:.4f}), host wall "
         f"median {np.median(wall):.4f} s/img ({' '.join(f'{v:.4f}' for v in wall)}); peak "
         f"memory {peak / 2**30:.2f} GiB{pngs}")
-    return launches
+    return {**launches, **abn}
 
 
 # ----------------------------------------------------------------------------
@@ -3271,28 +3425,33 @@ def phase_e2e_synthetic(tmp: str) -> dict:
     augmentation), then the exported ``.pth`` through the sliding
     ``Evaluator`` and through the reference replica in f32: E2E_STEPS finite
     losses, the training's launches (K1–K4 at (8, 45, 45, 64/512), K5/K6 at
-    (8, 45, 45, 19) → 353²) and the evaluation's, and held-out meanIU >
+    (8, 45, 45, 19) → 353², no eval-mode ABN) and the evaluation's (also
+    ABN_CCNET_R101 of eval-mode ABN's kernel a forward), and held-out meanIU >
     0.5 through both (``require_bar``: else the plain route's run is raised
     beside it). Returns the launches of training and evaluation."""
     e2e = _driver("e2e_synthetic_torch")
     recipe = dict(depth=DEPTH, steps=E2E_STEPS, device="cuda", snap_dir=os.path.join(tmp, "e2e"))
     _reset_counts()
     r = e2e.run(**recipe)
-    launches = _counts()
+    launches = {**_counts(), **_abn_launches()}
     losses = r["losses"]
     if len(losses) != E2E_STEPS or not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"e2e train losses {losses}")
     crop = (e2e.CROP, e2e.CROP)
-    # R=2 attention calls forward and backward per step, the NLL of both heads
-    want = _want(crop, 2 * E2E_STEPS, 2 * E2E_STEPS, 2 * E2E_STEPS)
+    # R=2 attention calls forward and backward per step, the NLL of both heads;
+    # eval-mode ABN's kernel none (train mode)
+    want = dict(_want(crop, 2 * E2E_STEPS, 2 * E2E_STEPS, 2 * E2E_STEPS), abn_eval=0,
+                abn_eval_residual=0)
     if r["train_launches"] != want:
         raise AssertionError(f"e2e training: expected launches {want}, got {r['train_launches']}")
     from ccnet_tpu_torch.evaluation import compute_tiles
 
     # each held-out image is predicted twice (Evaluator.run, predict_batch),
-    # its tiles in chunks of 8, R=2 attention calls a chunk
-    chunks = -(-len(compute_tiles(e2e.HW, crop)) // 8)
-    want_eval = _want(crop, 2 * chunks * 2 * e2e.HELD_OUT)
+    # its tiles in chunks of 8, R=2 attention calls and ABN_CCNET_R101 eval
+    # ABNs a chunk
+    forwards = -(-len(compute_tiles(e2e.HW, crop)) // 8) * 2 * e2e.HELD_OUT
+    want_eval = dict(_want(crop, 2 * forwards), abn_eval=ABN_CCNET_R101 * forwards,
+                     abn_eval_residual=ABN_CCNET_R101_RESIDUAL * forwards)
     if r["eval_launches"] != want_eval:
         raise AssertionError(f"e2e evaluation: expected launches {want_eval}, got "
                              f"{r['eval_launches']}")
@@ -3452,10 +3611,11 @@ def main(argv=None) -> None:
     phase_ohem()
     report.update(phase_line_kernels())
     report.update(phase_probes())
+    abn = phase_abn_eval()
     probe_launches = phase_probe_cli()
     with tempfile.TemporaryDirectory() as tmp:
         pth = ccnet_pth = os.path.join(tmp, "ccnet_r101_random.pth")
-        phase_model(pth)
+        abn_model = phase_model(pth)
         phase_train_step(pth, TRAIN_BATCH, (CROP, CROP), profile=args.profile)
         snap_769 = os.path.join(tmp, "snapshots")
         launches, trained = phase_train_main_path(pth, snap_769, TRAIN_BATCH, (CROP, CROP),
@@ -3467,7 +3627,7 @@ def main(argv=None) -> None:
         sliding = phase_main_path(trained, "sliding")
         whole = phase_main_path(trained, "whole")
         msflip = phase_main_path(trained, "msflip")
-        heads = []
+        heads, head_evals = [], []
         for name in ("pspnet", "deeplabv3"):  # the heads without attention: K5/K6
             pth = os.path.join(tmp, f"{name}_r101_random.pth")
             random_pth(name, pth)
@@ -3476,7 +3636,7 @@ def main(argv=None) -> None:
                                                   TRAIN_BATCH, (CROP, CROP), HEAD_TRAIN_STEPS,
                                                   name)
             heads.append(head)
-            phase_main_path(trained, "sliding-png", name)
+            head_evals.append(phase_main_path(trained, "sliding-png", name))
         # the rest of the single-card surface
         voc_loss = phase_voc_loss_kernels()
         voc = phase_voc_e2e(tmp)
@@ -3546,9 +3706,26 @@ def main(argv=None) -> None:
             log(f"[summary] {k['name']} at {tuple(VOC_LOSS)} (B, h, w, C, r): {v['ms']:.4f} / "
                 f"{v['bound_ms']:.4f} by {v['bound_by']} ({v['bound_ms'] / v['ms']:.1%}) / "
                 f"{v['plain_ms']:.4f} / none; {v['launches']} launches in the VOC training")
+    # eval-mode ABN's launches in the eval paths that check them: phase 8's
+    # R101 forwards, cli.evaluate sliding, --whole and MS+flip, PSPNet's and
+    # DeepLabv3's sliding runs, the learnability run's evaluation; its times
+    # at bn3's (8, 1024, 97, 97) with a residual (phase_abn_eval)
+    paths = [*abn_model.values(), sliding, whole, msflip, *head_evals, e2e]
+    row = abn["bn3 + residual 97²"]
+    k = {"name": "abn_eval", "route": "cuda", "source": "ccnet_tpu_torch/csrc/abn_eval.cu",
+         "replaces": None, "launches": sum(p["abn_eval"] for p in paths),
+         "launches_residual": sum(p["abn_eval_residual"] for p in paths),
+         "launches_r101_forward": abn_model["(8,3,769,769)"]["abn_eval"],
+         "ms": row["nchw"]["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+         "bound_by": "bytes", "library_ms": None, "share": row["nchw"]["share"]}
+    kernels.append(k)
+    log(f"[summary] abn_eval: {k['ms']:.4f} / {k['bound_ms']:.4f} by bytes "
+        f"({k['share']:.1%}) / {k['plain_ms']:.4f} / none; {k['launches']} launches on its paths "
+        f"({k['launches_residual']} with a residual), {k['launches_r101_forward']} a CCNet-R101 "
+        f"forward")
     log(f"[chip-smoke] every phase passed in {time.perf_counter() - t_main:.1f} s")
     log(smi)
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernels, "abn_eval": abn}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
