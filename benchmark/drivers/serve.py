@@ -10,16 +10,22 @@ pool (in a seeded order) as soon as the last answer is back: a request is
 timed from the moment the image is handed to the port until its trainIds
 are a host array.
 
-After the window, with the peak memory read and the model freed, a sample
-of the answered requests drawn from the seed is judged against the
-reference's sliding prediction of the same frame: at each pixel, how far
-the reference's logit of the class the port answered lies below the
+The sample that is judged is drawn from the seed as the answers come
+(a reservoir of ``check_requests``, uniform over every answered request),
+so the driver holds only those answers: keeping each 2 MiB answer alive
+grew the host's memory by 2 GiB a window and slowed the later requests
+(the port's own allocation of each answer still counts). Python's
+collector is off in the window. After the window, with the peak memory
+read and the model freed, the sample is judged against the reference's
+sliding prediction of the same frame: at each pixel, how far the
+reference's logit of the class the port answered lies below the
 reference's best, over the image's class spread (``id_gap``, the widest
 over the sample).
 """
 
 from __future__ import annotations
 
+import gc
 import random
 import time
 
@@ -87,22 +93,33 @@ def run(ctx) -> Outcome:
         torch.cuda.reset_peak_memory_stats(dev)
     setup_s = ctx.setup_clock()
     latencies, answers = [], []
+    draw = random.Random(inputs.sub_seed(seed, "sample"))
+    keep = tr["check_requests"]
     traced = tr["trace_skip"] + 1 + tr["trace_steps"]
+    gc.collect()
+    gc.disable()
     t0 = time.perf_counter()
     end = t0 + ctx.seconds
-    while time.perf_counter() < end or (profiler is not None and len(answers) < traced):
-        frame = order[len(answers) % len(order)]
+    while time.perf_counter() < end or (profiler is not None and len(latencies) < traced):
+        i = len(latencies)
+        frame = order[i % len(order)]
         sent = time.perf_counter()
         ids = evaluator.predict_batch(host_frames[frame][None])
         latencies.append(time.perf_counter() - sent)
-        answers.append((frame, ids[0]))
-        if profiler is not None and len(answers) <= traced:
+        if i < keep:
+            answers.append((frame, ids[0]))
+        else:
+            j = draw.randrange(i + 1)
+            if j < keep:
+                answers[j] = (frame, ids[0])
+        if profiler is not None and len(latencies) <= traced:
             profiler.step()
     window = time.perf_counter() - t0
+    gc.enable()
     if profiler is not None:
         profiler.__exit__(None, None, None)
     peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
-    n = len(answers)
+    n = len(latencies)
     metrics = {"serve_img_per_s": n / window, "serve_p95_ms": p95_ms(latencies),
                "peak_mem_gib": peak / 2 ** 30, "setup_s": setup_s}
     del evaluator, model, apply_fn
@@ -111,13 +128,10 @@ def run(ctx) -> Outcome:
 
     # the sample, judged against the reference
     t_ref = time.perf_counter()
-    picks = random.Random(inputs.sub_seed(seed, "sample")).sample(
-        range(n), min(tr["check_requests"], n))
     net = ref_models.build(cfg, device=dev)
     ref_models.load(net, {k: v.to(dev) for k, v in weights.items()})
     worst, flips = 0.0, []
-    for i in picks:
-        frame, ids = answers[i]
+    for frame, ids in answers:
         image = torch.from_numpy(host_frames[frame]).to(dev)
         logits = ref_serve.predict_sliding(net, image, cfg["mean_bgr"], tr["tile"],
                                            tr["overlap"], cfg["num_classes"])
@@ -125,7 +139,7 @@ def run(ctx) -> Outcome:
         worst = max(worst, gap)
         flips.append(flip)
     notes = [f"window {window!r} s, {n} requests (p95 over all {n}); setup {setup_s!r} s; "
-             f"reference {time.perf_counter() - t_ref!r} s over {len(picks)} requests",
+             f"reference {time.perf_counter() - t_ref!r} s over {len(answers)} requests",
              f"share of pixels answered other than the reference's best: {flips!r}"]
     stretch = box[0] if box else None
     if stretch is not None:
@@ -164,7 +178,7 @@ def _profiler(ctx, dev):
     box = []
     info = {"kind": "serve", "batch": boxes, "crop": tile, "classes": cfg["num_classes"],
             "dtype": cfg["dtype"], "ranks": 1,
-            "recurrence": cfg.get("recurrence", 2) if cfg["model"] == "ccnet" else 0,
+            "recurrence": cfg.get("recurrence", 0),
             "qk": cfg.get("qk_channels"), "v": cfg.get("inter_channels"),
             "feature_hw": tuple(shape[2:]), "flops_per_step": flops,
             "peak_flops": FLOPS[cfg["dtype"]]}

@@ -213,7 +213,7 @@ def _profiler(ctx, dev, per_rank_batch: int):
     box = []
     info = {"kind": "train", "batch": per_rank_batch, "crop": crop,
             "classes": cfg["num_classes"], "dtype": cfg["dtype"], "ranks": ctx.ranks,
-            "recurrence": cfg.get("recurrence", 2) if cfg["model"] == "ccnet" else 0,
+            "recurrence": cfg.get("recurrence", 0),
             "qk": cfg.get("qk_channels"), "v": cfg.get("inter_channels"),
             "feature_hw": (ref_train.os8(crop[0]), ref_train.os8(crop[1])),
             "flops_per_step": train_step_flops(cfg, per_rank_batch, crop),

@@ -1,14 +1,16 @@
-"""The plain reference networks of the benchmark: CCNet and DeepLabv3 on the
+"""The plain reference networks of the benchmark: a model's head on the
 dilated ResNet trunk, in plain torch, NCHW, f32.
 
-CCNet is a frozen copy of the repository's JAX-free replica of the
-reference network (``ABN``, ``Bottleneck``, ``TorchCCA``, ``RCCAHead``,
-``TorchCCNet``), itself written from the behavioural spec of
-speedinghzl/CCNet ``networks/ccnet.py``; DeepLabv3's ASPP head follows
-``networks/deeplabv3.py`` of the same repository. Module names are the
-reference's, so one state dict of reference names loads into these
-networks and into the port's. This file imports nothing of the program and
-must stay that way: it is the yardstick the program is judged by.
+The trunk, the DSN head and the building blocks are a frozen copy of the
+repository's JAX-free replica of the reference network (``ABN``,
+``Bottleneck``, ``TorchCCNet``), itself written from the behavioural spec
+of speedinghzl/CCNet ``networks/ccnet.py``. A configuration's main head is
+found by its ``"model"`` name in ``heads/<model>.py`` (:func:`find_head`):
+CCNet's RCCA in ``heads/ccnet.py``, DeepLabv3's ASPP in
+``heads/deeplabv3.py``. Module names are the reference's, so one state dict
+of reference names loads into these networks and into the port's. This
+file and the heads import nothing of the program and must stay that way:
+they are the yardstick the program is judged by.
 
 What differs from the copy:
 
@@ -27,6 +29,8 @@ What differs from the copy:
 
 from __future__ import annotations
 
+import importlib
+import os
 import threading
 from contextlib import contextmanager
 
@@ -99,12 +103,15 @@ class ABN(torch.nn.BatchNorm2d):
 
 
 class MaskedDropout(torch.nn.Module):
-    """Elementwise dropout with a mask given from outside (``mask``, a bool
-    tensor of the input's shape); the identity without one."""
+    """Elementwise dropout of a feature of ``channels`` channels with a mask
+    given from outside (``mask``, a bool tensor of the input's shape); the
+    identity without one. The training step draws the mask at ``channels``
+    (:func:`benchmark.reference.train.train_steps`)."""
 
-    def __init__(self, p):
+    def __init__(self, p, channels):
         super().__init__()
         self.p = p
+        self.channels = channels
         self.mask = None
 
     def forward(self, x):
@@ -138,80 +145,27 @@ class Bottleneck(torch.nn.Module):
         return operand(F.relu(out + res))
 
 
-class TorchCCA(torch.nn.Module):
-    def __init__(self, c):
-        super().__init__()
-        self.query_conv = Conv2d(c, c // 8, 1)
-        self.key_conv = Conv2d(c, c // 8, 1)
-        self.value_conv = Conv2d(c, c, 1)
-        self.gamma = torch.nn.Parameter(torch.zeros(1))
-
-    def forward(self, x):
-        B, C, H, W = x.shape
-        q, k, v = self.query_conv(x), self.key_conv(x), self.value_conv(x)
-        q, k, v = operand(q), operand(k), operand(v)
-        e_col = torch.einsum("bchw,bckw->bhwk", q, k)
-        eye = torch.eye(H, dtype=torch.bool, device=x.device)[:, None, :]
-        e_col = e_col.masked_fill(eye[None], float("-1e9"))
-        e_row = torch.einsum("bchw,bchv->bhwv", q, k)
-        e_col, e_row = operand(e_col), operand(e_row)
-        att = operand(torch.softmax(torch.cat([e_col, e_row], dim=3), dim=3))
-        out_col = torch.einsum("bhwk,bckw->bchw", att[..., :H], v)
-        out_row = torch.einsum("bhwv,bchv->bchw", att[..., H:], v)
-        return self.gamma * operand(out_col + out_row) + x
+HEADS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "heads")
 
 
-class RCCAHead(torch.nn.Module):
-    def __init__(self, cin, cout, classes, R, drop):
-        super().__init__()
-        inter = cin // 4
-        self.R = R
-        self.conva = Seq(Conv2d(cin, inter, 3, padding=1, bias=False), ABN(inter))
-        self.cca = TorchCCA(inter)
-        self.convb = Seq(Conv2d(inter, inter, 3, padding=1, bias=False), ABN(inter))
-        self.bottleneck = Seq(
-            Conv2d(cin + inter, cout, 3, padding=1, bias=False), ABN(cout),
-            MaskedDropout(drop), Conv2d(cout, classes, 1, bias=True))
-
-    def forward(self, x):
-        out = self.conva(x)
-        for _ in range(self.R):
-            out = self.cca(out)
-        out = self.convb(out)
-        return self.bottleneck(torch.cat([x, out], 1))
-
-
-class ASPP(torch.nn.Module):
-    """``networks/deeplabv3.py``'s ASPPModule: image pool, a 1×1 branch and
-    three dilated 3×3 branches, concatenated and reduced to 512."""
-
-    def __init__(self, cin, inner, cout, dilations, drop):
-        super().__init__()
-        self.conv1 = Seq(torch.nn.AdaptiveAvgPool2d((1, 1)),
-                         Conv2d(cin, inner, 1, bias=False), ABN(inner))
-        self.conv2 = Seq(Conv2d(cin, inner, 1, bias=False), ABN(inner))
-        self.conv3, self.conv4, self.conv5 = (
-            Seq(Conv2d(cin, inner, 3, padding=d, dilation=d, bias=False), ABN(inner))
-            for d in dilations)
-        self.bottleneck = Seq(Conv2d(5 * inner, cout, 1, bias=False), ABN(cout),
-                              MaskedDropout(drop))
-
-    def forward(self, x):
-        h, w = x.shape[2:]
-        feat1 = F.interpolate(self.conv1(x), size=(h, w), mode="bilinear",
-                              align_corners=True)
-        feats = [feat1, self.conv2(x), self.conv3(x), self.conv4(x), self.conv5(x)]
-        return self.bottleneck(torch.cat(feats, 1))
+def find_head(model: str):
+    """The ``head(config) -> torch.nn.Module`` of ``heads/<model>.py``;
+    ValueError naming the file where there is none."""
+    path = os.path.join(HEADS, f"{model}.py")
+    if not os.path.isfile(path):
+        raise ValueError(f"the reference has no model {model!r}: no head file {path}")
+    return importlib.import_module(f"{__package__}.heads.{model}").head
 
 
 class Segmenter(torch.nn.Module):
     """Deep-stem dilated ResNet at output stride 8 with a DSN auxiliary head
-    on layer3 and ``head`` on layer4: ``ccnet`` (RCCA, ``recurrence`` R) or
-    ``deeplabv3`` (ASPP). ``forward`` returns ``(main, aux)``."""
+    on layer3 and the configuration's head on layer4 (:func:`find_head`).
+    ``forward`` returns ``(main, aux)``."""
 
-    def __init__(self, model, classes, layers, recurrence=2, drop=0.1,
-                 aspp_inner=256, aspp_dilations=(12, 24, 36)):
+    def __init__(self, config: dict):
         super().__init__()
+        classes, layers = config["num_classes"], config["layers"]
+        drop = config.get("dropout", 0.1)
         self.conv1 = Conv2d(3, 64, 3, stride=2, padding=1, bias=False)
         self.bn1 = ABN(64, "identity")
         self.conv2 = Conv2d(64, 64, 3, padding=1, bias=False)
@@ -237,15 +191,9 @@ class Segmenter(torch.nn.Module):
         self.layer2 = make_layer(128, layers[1], stride=2)
         self.layer3 = make_layer(256, layers[2], dilation=2)
         self.layer4 = make_layer(512, layers[3], dilation=4, grids=(1, 1, 1))
-        if model == "ccnet":
-            self.head = RCCAHead(2048, 512, classes, recurrence, drop)
-        elif model == "deeplabv3":
-            self.head = Seq(ASPP(2048, aspp_inner, 512, aspp_dilations, drop),
-                            Conv2d(512, classes, 1, bias=True))
-        else:
-            raise ValueError(f"the reference has no model {model!r}")
+        self.head = find_head(config["model"])(config)
         self.dsn = Seq(Conv2d(1024, 512, 3, padding=1, bias=True), ABN(512),
-                       MaskedDropout(drop), Conv2d(512, classes, 1, bias=True))
+                       MaskedDropout(drop, 512), Conv2d(512, classes, 1, bias=True))
 
     def dropouts(self):
         """The dropout modules in the order a training forward of the
@@ -269,13 +217,8 @@ class Segmenter(torch.nn.Module):
 def build(config: dict, device="cpu") -> Segmenter:
     """The reference network of a configuration file's dict, f32, in eval
     mode on ``device`` (``"meta"`` for shapes and operation counts)."""
-    head = config.get("aspp", {})
     with torch.device(device):
-        net = Segmenter(config["model"], config["num_classes"], config["layers"],
-                        recurrence=config.get("recurrence", 2),
-                        drop=config.get("dropout", 0.1),
-                        aspp_inner=head.get("inner_channels", 256),
-                        aspp_dilations=tuple(head.get("dilations", (12, 24, 36))))
+        net = Segmenter(config)
     return net.eval()
 
 

@@ -190,9 +190,11 @@ def train_steps(net, frames, labels, batches, config: dict, traffic: dict, seed:
             imgs, lbls = augment(frames[idx], labels[idx], draws, crop,
                                  config["mean_bgr"], config["ignore_label"])
             out["crops"].append((imgs, lbls))
-            feat = (imgs.shape[0], 512, os8(crop[0]), os8(crop[1]))  # the heads' dropout inputs
-            masks = dropout_masks(seed, s, [feat] * len(net.dropouts()), dtype,
-                                  config.get("dropout", 0.1), imgs.device)
+            # each dropout acts on an output-stride-8 feature of its own width
+            shapes = [(imgs.shape[0], mod.channels, os8(crop[0]), os8(crop[1]))
+                      for mod in net.dropouts()]
+            masks = dropout_masks(seed, s, shapes, dtype, config.get("dropout", 0.1),
+                                  imgs.device)
             if fault == "half_batch":
                 half = imgs.shape[0] // 2
                 imgs, lbls, masks = imgs[:half], lbls[:half], [m[:half] for m in masks]

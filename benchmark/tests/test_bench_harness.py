@@ -98,6 +98,84 @@ def test_new_config_traffic_and_metric_are_files(tmp_path, monkeypatch, capsys):
     assert all(open(os.path.join(here, p), "rb").read() == b for p, b in before.items())
 
 
+# an FCN head: a 3x3 reduction to 256 channels, dropout on them, the classifier
+FCN_HEAD = """
+import torch
+from benchmark.reference.models import ABN, Conv2d, MaskedDropout, Seq
+
+
+def head(config: dict) -> torch.nn.Module:
+    return Seq(Conv2d(2048, 256, 3, padding=1, bias=False), ABN(256),
+               MaskedDropout(config.get("dropout", 0.1), 256),
+               Conv2d(256, config["num_classes"], 1, bias=True))
+"""
+
+NEW_MODEL_RUN = """
+import json, os, sys
+sys.path.insert(0, os.getcwd())
+from benchmark import harness, inputs
+from benchmark.reference import models, train
+from benchmark.work import flops
+cell = harness.find_cell("fcn_r101.train769", os.getcwd())
+count, shape = flops.forward_flops(cell.config, 2, (65, 65))
+net = models.build(cell.config)
+masks = [None] * len(net.dropouts())
+for i, mod in enumerate(net.dropouts()):
+    mod.register_forward_pre_hook(lambda m, a, i=i: masks.__setitem__(i, list(m.mask.shape)))
+tr = cell.traffic
+frames, labels = inputs.frames(3, tr["pool"], tr["frame_hw"], 19, 255, tr["block"],
+                               tr["border"], tr["noise"], "cpu")
+models.load(net, inputs.weights(models.state_names(net), 3, "cpu"))
+got = train.train_steps(net, frames, labels, [[0, 1]], cell.config, tr, 3, 1)
+print(json.dumps({"file": models.__file__, "flops": count, "shape": shape, "masks": masks,
+                  "losses": got["losses"]}))
+"""
+
+
+def test_new_model_is_new_files(tmp_path):
+    """A model the reference did not know, added as a head file, a
+    configuration naming it and BENCHMARK.json entries: the harness finds
+    its cell, and the reference builds it, counts its FLOPs and trains it,
+    drawing its head's dropout masks at the head's own 256 channels, with
+    no file that was there edited."""
+    root = _tiny.tiny_root(tmp_path)
+    here = os.path.join(root, "benchmark")
+    before = {}
+    for folder, _, files in os.walk(root):
+        for name in files:
+            path = os.path.join(folder, name)
+            before[path] = open(path, "rb").read()
+    with open(os.path.join(here, "reference", "heads", "fcn.py"), "w") as f:
+        f.write(FCN_HEAD)
+    config = harness.load_json(os.path.join(here, "configs", "deeplabv3_r101_cityscapes.json"))
+    del config["aspp"]
+    config.update(name="fcn_r101", model="fcn")
+    with open(os.path.join(here, "configs", "fcn_r101.json"), "w") as f:
+        json.dump(config, f)
+    shutil.copy(os.path.join(here, "limits", "deeplabv3_r101.train769.json"),
+                os.path.join(here, "limits", "fcn_r101.train769.json"))
+    bench = harness.load_json(os.path.join(root, "BENCHMARK.json"))
+    bench["configs"].append({"name": "fcn_r101", "source": "https://arxiv.org/abs/1411.4038",
+                             "file": "benchmark/configs/fcn_r101.json", "reduced": [],
+                             "why": "a test model"})
+    bench["workloads"].append({"name": "fcn_r101.train769", "config": "fcn_r101",
+                               "traffic": "train769", "chips": 1, "why": "a test cell"})
+    with open(os.path.join(root, "BENCHMARK.json"), "w") as f:
+        json.dump(bench, f)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", NEW_MODEL_RUN], cwd=root, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    out = _last_json(proc.stdout)
+    assert out["file"] == os.path.join(here, "reference", "models.py")
+    assert out["flops"] > 0 and out["shape"] == [2, 19, 9, 9]
+    assert out["masks"] == [[2, 512, 9, 9], [2, 256, 9, 9]]  # the DSN's, then the head's
+    assert len(out["losses"]) == 1 and np.isfinite(out["losses"][0])
+    for path, data in before.items():
+        if path != os.path.join(root, "BENCHMARK.json"):
+            assert open(path, "rb").read() == data, path
+
+
 def test_p95_is_over_every_request():
     lat = [0.05] * 90 + [0.5] * 10
     assert serve.p95_ms(lat) == pytest.approx(1e3 * np.percentile(lat, 95))

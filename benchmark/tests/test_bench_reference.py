@@ -147,11 +147,25 @@ def test_augment_matches_port(seed):
         assert torch.equal(pl.long(), rl)
 
 
+def test_unknown_model_names_its_head_file():
+    with pytest.raises(ValueError) as err:
+        R.build(_config("nonet"), device="meta")
+    assert os.path.join(REFERENCE, "heads", "nonet.py") in str(err.value)
+
+
+def _sources():
+    """Every Python file under ``reference/``, heads included."""
+    for folder, _, files in os.walk(REFERENCE):
+        for name in files:
+            if name.endswith(".py"):
+                yield os.path.join(folder, name)
+
+
 def test_reference_imports_nothing_of_the_program():
-    for name in os.listdir(REFERENCE):
-        if not name.endswith(".py"):
-            continue
-        with open(os.path.join(REFERENCE, name)) as f:
+    paths = list(_sources())
+    assert os.path.join(REFERENCE, "heads", "ccnet.py") in paths
+    for name in paths:
+        with open(name) as f:
             tree = ast.parse(f.read())
         for node in ast.walk(tree):
             if isinstance(node, ast.Import):

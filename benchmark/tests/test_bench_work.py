@@ -4,6 +4,7 @@ import pytest
 import torch
 
 from benchmark.reference import models as R
+from benchmark.reference.heads.ccnet import TorchCCA
 from benchmark.work import flops, ops, peaks
 
 TINY = {"model": "ccnet", "num_classes": 19, "layers": [1, 1, 1, 1], "recurrence": 2}
@@ -27,7 +28,7 @@ def _hand_count(config, batch, hw):
     for m in net.modules():
         if isinstance(m, torch.nn.Conv2d):
             m.register_forward_hook(conv)
-        if isinstance(m, R.TorchCCA):
+        if isinstance(m, TorchCCA):
             m.register_forward_hook(cca)
     with torch.no_grad():
         net(torch.empty((batch, 3, *hw), device="meta"))
