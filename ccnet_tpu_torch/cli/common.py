@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import torch
 
+from ccnet_tpu_torch.models.registry import MODELS
 from ccnet_tpu_torch.parallel.distributed import world
 from ccnet_tpu_torch.parallel.mesh import grid, space_group
 
@@ -44,7 +45,10 @@ def resolve_space(args, logger):
     ``--whole --space N`` splits each image's rows over the N ranks of a
     space group (convolutions exchange halo rows, the criss-cross attention
     gathers q, k and v) and the images over the ``world / N`` data groups;
-    ``--space 1`` shards the images over all ranks."""
+    ``--space 1`` shards the images over all ranks. ``--space N > 1`` with a
+    model that is not ``height_shardable`` (DANet) raises ValueError."""
+    if args.space > 1:
+        MODELS[args.model].check_shardable()
     if args.space > 1 and not args.whole:
         raise SystemExit("--space N applies to --whole inference only "
                          "(sliding mode shards the images over the ranks instead: "

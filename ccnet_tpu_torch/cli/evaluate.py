@@ -4,7 +4,8 @@ Counterpart of :mod:`ccnet_tpu.cli.evaluate`, with the same flags plus
 ``--device`` (default ``cuda``; asking for CUDA where there is none raises).
 The default run is CCNet-R101, R=2, bf16, 769² sliding windows; on a CUDA
 device the criss-cross attention goes through the hand-written kernels.
-``--model pspnet`` and ``--model deeplabv3`` score those heads' ``.pth``.
+``--model pspnet``, ``--model deeplabv3`` and ``--model danet`` score those
+heads' ``.pth``.
 
     python -m ccnet_tpu_torch.cli.evaluate --synthetic --restore-from ccnet.pth
 
@@ -58,7 +59,7 @@ from ccnet_tpu_torch.data import (
 )
 from ccnet_tpu_torch.data.palette import voc_colormap
 from ccnet_tpu_torch.evaluation import Evaluator
-from ccnet_tpu_torch.models import build_model
+from ccnet_tpu_torch.models import MODELS, build_model
 from ccnet_tpu_torch.parallel import maybe_initialize_distributed, rank_device
 from ccnet_tpu_torch.train import create_train_state
 from ccnet_tpu_torch.utils import get_logger, load_pth, restore_checkpoint
@@ -75,7 +76,7 @@ def get_parser():
                    help="pad variable-size inputs up to multiples of this (default 128 "
                         "for voc)")
     p.add_argument("--model", type=str, default="ccnet",
-                   choices=["ccnet", "pspnet", "deeplabv3"])
+                   choices=list(MODELS))
     p.add_argument("--recurrence", type=int, default=2)
     p.add_argument("--depth", type=int, default=101, choices=[50, 101, 152])
     p.add_argument("--num-classes", type=int, default=19)

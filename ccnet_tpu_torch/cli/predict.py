@@ -38,7 +38,7 @@ from ccnet_tpu_torch.cli.common import (
 from ccnet_tpu_torch.data import CityscapesDataset, DataLoader, trainid_to_labelid
 from ccnet_tpu_torch.data.palette import cityscapes_palette, save_grey_png, save_indexed_png
 from ccnet_tpu_torch.evaluation import Evaluator
-from ccnet_tpu_torch.models import build_model
+from ccnet_tpu_torch.models import MODELS, build_model
 from ccnet_tpu_torch.parallel import maybe_initialize_distributed, rank_device
 from ccnet_tpu_torch.utils import get_logger, load_pth
 
@@ -49,7 +49,7 @@ def get_parser():
     p.add_argument("--data-list", type=str, default=None)
     p.add_argument("--split", type=str, default="test")
     p.add_argument("--model", type=str, default="ccnet",
-                   choices=["ccnet", "pspnet", "deeplabv3"])
+                   choices=list(MODELS))
     p.add_argument("--recurrence", type=int, default=2)
     p.add_argument("--depth", type=int, default=101)
     p.add_argument("--num-classes", type=int, default=19)

@@ -5,8 +5,9 @@
 The default run is the reference recipe: CCNet-R101, R=2, 19 classes, bf16
 compute over f32 master weights, batch 8 of 769² crops, poly-LR SGD with
 momentum 0.9 and weight decay 1e-4 (``--ohem 1`` for the OHEM+DSN
-criterion). ``--model pspnet`` and ``--model deeplabv3`` train the PSP and
-ASPP heads on the same trunk (``--recurrence`` does not apply to them). On a
+criterion). ``--model pspnet``, ``--model deeplabv3`` and ``--model danet``
+train the PSP, ASPP and dual-attention heads on the same trunk
+(``--recurrence`` does not apply to them). On a
 CUDA device the criss-cross attention and the upsample+NLL loss, forward
 and backward, go through the hand-written kernels. ``--device`` defaults
 to ``cuda`` and raises without CUDA; ``--fp32 1`` computes in f32 with TF32
@@ -45,8 +46,6 @@ from __future__ import annotations
 
 import argparse
 
-import torch
-
 from ccnet_tpu_torch.cli.common import note_unused_cards, str2bool
 from ccnet_tpu_torch.data import (
     AugmentingDataset,
@@ -58,6 +57,7 @@ from ccnet_tpu_torch.data import (
     VOCDataset,
 )
 from ccnet_tpu_torch.data.voc import VOC_MEAN, VOC_SCALE_MIN, VOC_SCALE_STEPS
+from ccnet_tpu_torch.models import MODELS
 from ccnet_tpu_torch.parallel import maybe_initialize_distributed, rank_device, world
 from ccnet_tpu_torch.train.trainer import TrainConfig, Trainer
 from ccnet_tpu_torch.utils import get_logger
@@ -69,7 +69,7 @@ def get_parser():
     p.add_argument("--data-dir", type=str, default="cityscapes")
     p.add_argument("--data-list", type=str, default=None,
                    help=".lst file (image label per line); default: discover layout")
-    p.add_argument("--model", type=str, default="ccnet", choices=["ccnet", "pspnet", "deeplabv3"])
+    p.add_argument("--model", type=str, default="ccnet", choices=list(MODELS))
     p.add_argument("--recurrence", type=int, default=2)
     p.add_argument("--depth", type=int, default=101, choices=[50, 101, 152])
     p.add_argument("--num-classes", type=int, default=19)
@@ -147,10 +147,6 @@ def main(argv=None, dataset=None):
     if args.batch_size % ranks:
         raise SystemExit(f"--batch-size {args.batch_size} must divide over {ranks} processes")
     note_unused_cards(logger, device, "ccnet_tpu_torch.cli.train")
-    if args.fp32:
-        # strict numerics: full-f32 matmuls and convolutions, no TF32
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
     h, w = (int(x) for x in args.input_size.split(","))
     cfg = TrainConfig(
         model=args.model, num_classes=args.num_classes, recurrence=args.recurrence,

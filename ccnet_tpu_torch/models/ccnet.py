@@ -167,7 +167,20 @@ class DSNSegmenter(DilatedResNet):
     ``dsn`` on layer3 (CCNet, PSPNet, DeepLabv3). Returns {'main', 'aux'} f32
     logits at OS 8."""
 
+    #: False where the head reads every position of the map (DANet's
+    #: attentions), so a height-sharded forward (``--space``) cannot run it
+    height_shardable = True
+
+    @classmethod
+    def check_shardable(cls) -> None:
+        """Raise ValueError unless the model runs on a shard's rows."""
+        if not cls.height_shardable:
+            raise ValueError(f"{cls.__name__}'s head reads every position of the map and is "
+                             "not height-sharded: run it without --space")
+
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+        if spatial.current() is not None:
+            self.check_shardable()
         x3, x4 = super().forward(x)
         aux = self.dsn(x3)
         main = self.head(x4)

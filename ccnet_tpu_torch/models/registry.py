@@ -1,8 +1,9 @@
 """Model registry — explicit name→builder mapping.
 
 Counterpart of :mod:`ccnet_tpu.models.registry`: ``ccnet``, ``pspnet`` and
-``deeplabv3``. The two heads without criss-cross attention accept and
-ignore ``recurrence`` and ``impl``, as the JAX registry does.
+``deeplabv3``, and the port's own ``danet`` (which the JAX package does not
+build). The heads without criss-cross attention accept and ignore
+``recurrence`` and ``impl``, as the JAX registry does.
 """
 
 from __future__ import annotations
@@ -13,9 +14,12 @@ import numpy as np
 import torch
 
 from ccnet_tpu_torch.models.ccnet import CCNet
+from ccnet_tpu_torch.models.danet import DANet
 from ccnet_tpu_torch.models.deeplabv3 import DeepLabV3
 from ccnet_tpu_torch.models.pspnet import PSPNet
 
+#: Every model the port builds, by the name the CLIs' ``--model`` takes.
+MODELS = {"ccnet": CCNet, "pspnet": PSPNet, "deeplabv3": DeepLabV3, "danet": DANet}
 _DEPTH_LAYERS = {50: (3, 4, 6, 3), 101: (3, 4, 23, 3), 152: (3, 8, 36, 3)}
 
 
@@ -29,20 +33,13 @@ def build_model(name: str, num_classes: int = 19, recurrence: int = 2, depth: in
     (:func:`~ccnet_tpu_torch.models.backbone.remat_plan`)."""
     if depth not in _DEPTH_LAYERS:
         raise ValueError(f"unknown depth {depth}; available: {sorted(_DEPTH_LAYERS)}")
-    layers = _DEPTH_LAYERS[depth]
+    if name not in MODELS:
+        raise ValueError(f"unknown model {name!r}; available: {', '.join(MODELS)}")
+    extra = {"recurrence": recurrence, "impl": impl} if name == "ccnet" else {}
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
-        if name == "ccnet":
-            model = CCNet(num_classes=num_classes, layers=layers, recurrence=recurrence,
-                          impl=impl, drop_rate=drop_rate, dtype=dtype, remat=remat)
-        elif name == "pspnet":
-            model = PSPNet(num_classes=num_classes, layers=layers, drop_rate=drop_rate,
-                           dtype=dtype, remat=remat)
-        elif name == "deeplabv3":
-            model = DeepLabV3(num_classes=num_classes, layers=layers, drop_rate=drop_rate,
-                              dtype=dtype, remat=remat)
-        else:
-            raise ValueError(f"unknown model {name!r}; available: ccnet, pspnet, deeplabv3")
+        model = MODELS[name](num_classes=num_classes, layers=_DEPTH_LAYERS[depth],
+                             drop_rate=drop_rate, dtype=dtype, remat=remat, **extra)
     return model.eval().to(device)
 
 

@@ -104,7 +104,7 @@ class TrainConfig:
     resume: bool = False  # resume the full state from snapshot_dir
     start_step: int = 0
     seed: int = 0
-    bf16: bool = True
+    bf16: bool = True  # False: strict f32, TF32 off in cuBLAS and cuDNN for the process
     remat: Any = False  # False | True (layers 3-4) | 'conv12' | 'convs' | tuple of layers
     impl: str = "auto"  # criss-cross attention and NLL: torch | kernel | auto
     export_pth: bool = True
@@ -140,6 +140,11 @@ class Trainer:
             native.load()  # raises here, not in the first step, if it does not build
         self.logger = get_logger("ccnet_tpu_torch.train")
         self.device = rank_device(c.device)
+        if not c.bf16:
+            # f32 training is f32 products, as the reference implementations
+            # train: no TF32 in matmuls or cuDNN's convolutions
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
         model = build_model(c.model, num_classes=c.num_classes, recurrence=c.recurrence,
                             depth=c.depth, dtype=torch.bfloat16 if c.bf16 else torch.float32,
                             impl=c.impl, seed=c.seed, device=self.device, remat=c.remat)

@@ -167,6 +167,9 @@ def test_registry():
         m = build_model(name, num_classes=3, depth=50, recurrence=5, impl="kernel")
         assert type(m.head[0]).__name__ == head and m.head[1].out_channels == 3
         assert not any(".cca." in k for k in m.state_dict())
+    m = build_model("danet", num_classes=3, depth=50, recurrence=5, impl="kernel")
+    assert type(m.head).__name__ == "DANetHead" and m.head.conv8[1].out_channels == 3
+    assert not any(".cca." in k for k in m.state_dict())
     with pytest.raises(ValueError, match="unknown model"):
         build_model("fcn")
     a = build_model("ccnet", num_classes=3, depth=50, seed=7)

@@ -150,6 +150,20 @@ def test_remat_trainer_bn_stats_equal_plain_trainer(small_depth, tmp_path):
         np.testing.assert_array_equal(s.numpy(), runs[False][1][name].numpy(), err_msg=name)
 
 
+@pytest.mark.parametrize("bf16", [False, True])
+def test_f32_trainer_turns_tf32_off(small_depth, tmp_path, monkeypatch, bf16):
+    """f32 training is f32 products: the Trainer turns TF32 off in cuBLAS
+    and cuDNN (the reference implementations' numerics); bf16 training
+    leaves both settings as they were."""
+    for flags in (torch.backends.cuda.matmul, torch.backends.cudnn):
+        monkeypatch.setattr(flags, "allow_tf32", True)
+    Trainer(TrainConfig(num_classes=5, depth=50, input_size=(33, 33), batch_size=2,
+                        num_steps=1, bf16=bf16, device="cpu", export_pth=False,
+                        snapshot_dir=str(tmp_path)))
+    assert torch.backends.cuda.matmul.allow_tf32 is bf16
+    assert torch.backends.cudnn.allow_tf32 is bf16
+
+
 def _train(tmp_path, *flags, dataset=None):
     from ccnet_tpu_torch.cli.train import main
 
